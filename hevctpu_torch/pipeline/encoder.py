@@ -1,0 +1,999 @@
+"""The frame encoder: CNN-pruned All-Intra mode decision + wavefront
+reconstruction (port of hevctpu/pipeline/encoder.py, main path).
+
+  Stage 1 (dense "search"): for every CU/PU position at every depth, all
+  35 modes are scored by SATD (K1, ops/satd_fused.py), the top candidates
+  plus the MPMs are RD-evaluated, and the TU tree, NxN and chroma
+  decisions follow, all as batched tensor ops over the frame.
+
+  Stage 2 (wavefront reconstruction): with the partition fixed by the CNN
+  labels and the modes by stage 1, CTUs are reconstructed in wavefront
+  diagonals (d = 2r + c), TUs in z-order within each CTU, exactly as a
+  decoder would: predict -> transform -> RDOQ/TS/SBH -> dequant ->
+  inverse -> recon.
+
+The JAX package runs stage 2 as nested lax.scans over every TU step with
+firing masks. Here the diagonal and step loops are Python loops; the
+firing masks and availability vectors depend only on stage 1's partition
+and the geometry, so they are planned on the host once per batch
+(_stage2_plan), uploaded in one copy, and a step that fires for no CTU of
+its diagonal is skipped (a masked step writes nothing). The extended
+recon buffers are updated in place.
+
+Options outside this slice (search="rd", rate_model="ctx", qp_map,
+two_pass, lite transfer, and turning any coding tool off) raise
+NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from hevctpu_torch import get_device, rom
+from hevctpu_torch.ops import (ctu, deblock, intra, intra_mm, quant, rate, rd,
+                               sao, satd_fused, transforms)
+from hevctpu_torch.ops.quant import seqsum
+
+# ---------------------------------------------------------------------------
+# Geometry
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    h: int
+    w: int
+
+    @property
+    def rc(self) -> int:
+        return -(-self.h // 64)
+
+    @property
+    def cc(self) -> int:
+        return -(-self.w // 64)
+
+    @property
+    def hp(self) -> int:
+        return self.rc * 64
+
+    @property
+    def wp(self) -> int:
+        return self.cc * 64
+
+    @functools.cached_property
+    def wavefront(self):
+        """(act_r, act_c, act_mask) [D, A]: CTUs active on each diagonal
+        d = 2r + c (the WPP dependency order)."""
+        rc, cc = self.rc, self.cc
+        diags = [[(r, c) for r in range(rc) for c in range(cc)
+                  if 2 * r + c == d] for d in range(2 * (rc - 1) + cc)]
+        a = max(len(x) for x in diags)
+        d = len(diags)
+        act_r = np.zeros((d, a), dtype=np.int32)
+        act_c = np.zeros((d, a), dtype=np.int32)
+        act_m = np.zeros((d, a), dtype=bool)
+        for i, cells in enumerate(diags):
+            for j, (r, c) in enumerate(cells):
+                act_r[i, j], act_c[i, j], act_m[i, j] = r, c, True
+        return act_r, act_c, act_m
+
+    @functools.cached_property
+    def bh_bw(self):
+        bh = np.clip(self.h - 64 * np.arange(self.rc), 0, 64).astype(np.int32)
+        bw = np.clip(self.w - 64 * np.arange(self.cc), 0, 64).astype(np.int32)
+        return bh, bw
+
+
+def pad_plane(p: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
+    """Edge-replicate pad [..., H, W] -> [..., hp, wp]."""
+    h, w = p.shape[-2:]
+    ri = torch.clamp(torch.arange(hp, device=p.device), max=h - 1)
+    ci = torch.clamp(torch.arange(wp, device=p.device), max=w - 1)
+    return p.index_select(-2, ri).index_select(-1, ci)
+
+
+def to_blocked(plane: torch.Tensor, n: int) -> torch.Tensor:
+    """[..., R*n, C*n] -> [..., R, C, n, n] (a view)."""
+    s = plane.shape
+    r, c = s[-2] // n, s[-1] // n
+    return plane.reshape(*s[:-2], r, n, c, n).transpose(-3, -2)
+
+
+def from_blocked(b: torch.Tensor) -> torch.Tensor:
+    s = b.shape
+    return b.transpose(-3, -2).reshape(*s[:-4], s[-4] * s[-2],
+                                       s[-3] * s[-1])
+
+
+def _rep2(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Repeat each of the last two axes k times."""
+    return x.repeat_interleave(k, dim=-2).repeat_interleave(k, dim=-1)
+
+
+def _pool2(x: torch.Tensor) -> torch.Tensor:
+    """Float 2x2 pooling sum over the last two axes (order-fixed)."""
+    *lead, r, c = x.shape
+    return seqsum(x.reshape(*lead, r // 2, 2, c // 2, 2), (-3, -1))
+
+
+# ---------------------------------------------------------------------------
+# Stage 1: dense mode decision
+# ---------------------------------------------------------------------------
+
+# Row chunk budget of the dense RD intermediates (memory only).
+_CHUNK_BYTES = 1 << 30
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_avail(geom: Geometry, n: int, scale: int = 1) -> np.ndarray:
+    """Static availability mask [R, C, 4n+1] for every aligned n x n block
+    of the plane (scale=2 for chroma: CTU span 32, half-res picture)."""
+    span = 64 // scale
+    hp, wp = geom.hp // scale, geom.wp // scale
+    gy, gx = np.meshgrid(np.arange(0, hp, n), np.arange(0, wp, n),
+                         indexing="ij")
+    gy, gx = gy.ravel(), gx.ravel()
+    zm = ctu.morton(span // 4)
+    av = ctu.boundary_available(
+        gy % span, gx % span, n, zm[(gy % span) // 4, (gx % span) // 4],
+        (gy // span) * span, (gx // span) * span,
+        geom.h // scale, geom.w // scale, scale=scale)
+    return av.reshape(hp // n, wp // n, 4 * n + 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_avail_t(geom: Geometry, n: int, scale: int,
+                  device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(_grid_avail(geom, n, scale), device=device)
+
+
+def _grid_refs(plane: torch.Tensor, geom: Geometry, n: int, scale: int):
+    """Filled + smoothed references of every aligned n x n block:
+    (top_ext, left_ext, top_f, left_f), each [B, R, C, 2n+1]."""
+    bounds = intra_mm.grid_boundaries(plane, n)
+    filled = intra.fill_reference(bounds,
+                                  _grid_avail_t(geom, n, scale, plane.device))
+    top_e, left_e = intra.split_boundary(filled, n)
+    return (top_e, left_e) + intra.smooth_reference(top_e, left_e, n)
+
+
+def _dense_costs(plane: torch.Tensor, geom: Geometry, n: int) -> torch.Tensor:
+    """SATD of all 35 luma modes at every aligned n x n position, through
+    K1: plane [B, hp, wp] -> [B, R, C, 35] int32."""
+    refs = _grid_refs(plane, geom, n, 1)
+    return satd_fused.dense_mode_costs(*refs, to_blocked(plane, n), n)
+
+
+_MODE_IDX = np.arange(35, dtype=np.int32)
+_MB_GLOBAL = (1.8, 2.8, 5.8)  # fitted (mpm0, mpm1/2, rem) signaling bits
+
+
+def _mpm_modes(best: torch.Tensor):
+    """3-entry MPM list per grid position (H.265 8.4.2) from the grid of
+    provisional decisions `best` [B, R, C] (left/above same-size
+    neighbors; unavailable counts as DC). Returns (m0, m1, m2) int32."""
+    a = F.pad(best[:, :, :-1], (1, 0), value=rom.DC_IDX)         # left
+    bm = F.pad(best[:, :-1, :], (0, 0, 1, 0), value=rom.DC_IDX)  # above
+    eq = a == bm
+    a_small = a < 2
+    m0 = torch.where(eq, torch.where(a_small, rom.PLANAR_IDX, a), a)
+    m1 = torch.where(eq, torch.where(a_small, rom.DC_IDX,
+                                     2 + ((a + 29) % 32)), bm)
+    m2_eq = torch.where(a_small, rom.VER_IDX, 2 + ((a - 1) % 32))
+    has_pl = (a == rom.PLANAR_IDX) | (bm == rom.PLANAR_IDX)
+    has_dc = (a == rom.DC_IDX) | (bm == rom.DC_IDX)
+    m2_ne = torch.where(~has_pl, rom.PLANAR_IDX,
+                        torch.where(~has_dc, rom.DC_IDX, rom.VER_IDX))
+    m2 = torch.where(eq, m2_eq, m2_ne)
+    i32 = torch.int32
+    return m0.to(i32), m1.to(i32), m2.to(i32)
+
+
+def _mode_bits_at(cand: torch.Tensor, m0, m1, m2,
+                  scale: float) -> torch.Tensor:
+    """scale-weighted signaling cost [..., K] float32 of the candidate
+    modes given the MPM triple: prev_intra_luma_pred_flag + mpm_idx, or
+    flag + 5 bypass bins."""
+    is0 = cand == m0[..., None]
+    is12 = (cand == m1[..., None]) | (cand == m2[..., None])
+    mb = _MB_GLOBAL
+    bits = torch.where(is0, mb[0], torch.where(is12, mb[1], mb[2]))
+    return (scale * bits).to(torch.float32)
+
+
+def _dense_rd_candidates(plane: torch.Tensor, geom: Geometry, n: int,
+                         cand: torch.Tensor, qp: int, lam: float, *,
+                         is_luma: bool = True,
+                         scale: int = 1) -> torch.Tensor:
+    """Full-RD cost [B, R, C, K] float32 of the candidate modes cand
+    [B, R, C, K] at every aligned n x n position: predict all 35 (one
+    matmul), gather the K candidates, transform + quant + rate for those
+    (residual RD only; mode-signaling bits are the caller's)."""
+    b, hp, wp = plane.shape
+    r_n, c_n = hp // n, wp // n
+    kc = cand.shape[-1]
+    refs = _grid_refs(plane, geom, n, scale)
+    blocks = to_blocked(plane, n)
+    log2 = int(np.log2(n))
+    per_row = b * c_n * (35 + 6 * kc) * n * n * 8
+    rows = int(max(1, min(r_n, _CHUNK_BYTES // per_row)))
+    out = []
+    for r0 in range(0, r_n, rows):
+        sl = slice(r0, r0 + rows)
+        preds = intra_mm.predict_all_modes_mm(
+            *(x[:, sl] for x in refs), n, is_luma=is_luma)
+        cd = cand[:, sl].long()
+        sel = torch.gather(preds, -3, cd[..., None, None].expand(
+            cd.shape + (n, n)))
+        rdc, _, _ = rd.mode_rd_costs(sel, blocks[:, sl], log2, qp, lam=lam,
+                                     dst=(is_luma and n == 4))
+        out.append(rdc)
+    return torch.cat(out, dim=1)
+
+
+# SATD-preselection candidate count per block size (HM's
+# g_aucIntraModeNumFast_UseMPM); the 3 MPMs are force-included on top.
+_NUM_CAND = {4: 8, 8: 8, 16: 3, 32: 3, 64: 3}
+
+
+def _pass1_candidates(satd: torch.Tensor, lam: float, n: int):
+    """HM's pass-1 preselection: SATD + sqrt(λ)·mode-bits, keep top-N
+    (lowest cost, lower mode first on ties, as lax.top_k), then the 3
+    MPMs from the provisional SATD argmin grid. satd [B, R, C, 35] ->
+    (cand [B, R, C, N+3] int32, (m0, m1, m2))."""
+    prov = satd.argmin(dim=-1).to(torch.int32)
+    m0, m1, m2 = _mpm_modes(prov)
+    all_modes = torch.as_tensor(_MODE_IDX, device=satd.device).expand(
+        satd.shape)
+    p1 = satd.to(torch.float32) + _mode_bits_at(
+        all_modes, m0, m1, m2, float(np.sqrt(lam)))
+    topn = torch.sort(p1, dim=-1, stable=True).indices[..., :_NUM_CAND[n]]
+    cand = torch.cat([topn.to(torch.int32), m0[..., None], m1[..., None],
+                      m2[..., None]], dim=-1)
+    return cand, (m0, m1, m2)
+
+
+def _best_of(rdc: torch.Tensor, cand: torch.Tensor):
+    """(mode, cost) of the cheapest candidate (first on ties)."""
+    cost, best = torch.min(rdc, dim=-1)
+    return torch.gather(cand, -1, best[..., None])[..., 0], cost
+
+
+def _dense_mode_decision(plane: torch.Tensor, geom: Geometry, qp: int):
+    """RD-best luma mode + cost for every CU/PU position at every depth:
+    pass 1 scores all 35 modes by SATD + sqrt(λ)·mode-bits (K1), pass 2
+    full-RDs the top-N + 3 MPM candidates. Returns (modes {n: [B,R,C]
+    int32}, costs {n: [B,R,C] float32}) for n in (64, 32, 16, 8, 4); the
+    64 entry evaluates its candidates as four 32x32 TUs."""
+    lam = rate.lambda_rd(qp)
+    modes, costs = {}, {}
+    satd32 = None
+    for n in (32, 16, 8, 4):
+        satd = _dense_costs(plane, geom, n)
+        cand, (m0, m1, m2) = _pass1_candidates(satd, lam, n)
+        rdc = (_dense_rd_candidates(plane, geom, n, cand, qp, lam)
+               + _mode_bits_at(cand, m0, m1, m2, lam))
+        modes[n], costs[n] = _best_of(rdc, cand)
+        if n == 32:
+            satd32 = satd
+    # 64-CU: pool quadrant SATDs per mode, preselect, then RD the four
+    # 32x32 TUs at each shared candidate mode.
+    b, r32, c32 = satd32.shape[:3]
+    s64 = satd32.reshape(b, r32 // 2, 2, c32 // 2, 2, 35).sum(
+        dim=(2, 4)).to(torch.int32)
+    cand64, (m0, m1, m2) = _pass1_candidates(s64, lam, 64)
+    rd_q = _dense_rd_candidates(plane, geom, 32, _rep2(cand64.movedim(-1, 1),
+                                                       2).movedim(1, -1),
+                                qp, lam)
+    kc = cand64.shape[-1]
+    rd64 = (seqsum(rd_q.reshape(b, r32 // 2, 2, c32 // 2, 2, kc), (2, 4))
+            + _mode_bits_at(cand64, m0, m1, m2, lam))
+    modes[64], costs[64] = _best_of(rd64, cand64)
+    return modes, costs
+
+
+_CHROMA_LIST = np.array([rom.PLANAR_IDX, rom.VER_IDX, rom.HOR_IDX,
+                         rom.DC_IDX], np.int32)
+_CHROMA_SEL_BITS = (2.6, 2.6, 2.6, 2.6, 0.6)   # 4 list entries, DM
+
+
+def _dense_chroma_decision(up, vp, geom: Geometry, qp: int, qp_c: int,
+                           luma_modes: dict):
+    """Per-CU chroma mode selection: joint Cb+Cr RD of the 4 list modes
+    (with the ==luma -> 34 substitution) and DM, keyed by luma CU size n
+    in (64, 32, 16, 8). Returns (csel {n: [B,R,C] int32, 0..3 list index
+    or 4 = DM}, cmode {n: [B,R,C] int32 resolved chroma mode})."""
+    lam = rate.lambda_rd(qp)
+    lam_c = lam / rate.chroma_dist_weight(qp, qp_c)
+    sel_bits = torch.as_tensor(_CHROMA_SEL_BITS, dtype=torch.float32,
+                               device=up.device) * lam_c
+    chroma_list = torch.as_tensor(_CHROMA_LIST, device=up.device)
+    csel, cmode = {}, {}
+    for n in (64, 32, 16, 8):
+        m = n // 2
+        lm = luma_modes[n]
+        cand = chroma_list.expand(lm.shape + (4,))
+        cand = torch.where(cand == lm[..., None], 34, cand)
+        cand = torch.cat([cand, lm[..., None]], dim=-1)        # slot 4 = DM
+        rd_u = _dense_rd_candidates(up, geom, m, cand, qp_c, lam_c,
+                                    is_luma=False, scale=2)
+        rd_v = _dense_rd_candidates(vp, geom, m, cand, qp_c, lam_c,
+                                    is_luma=False, scale=2)
+        jc = rd_u + rd_v + sel_bits
+        best = jc.argmin(dim=-1)
+        csel[n] = best.to(torch.int32)
+        cmode[n] = torch.gather(cand, -1, best[..., None])[..., 0]
+    return csel, cmode
+
+
+def _tu_tree_decision(plane: torch.Tensor, geom: Geometry, qp: int,
+                      cu_log2: int, mode_cu: torch.Tensor):
+    """Intra TU quadtree RD decision (checkFull vs checkSplit, max depth 3)
+    for every CU position of size 2^cu_log2 with per-CU mode mode_cu
+    [B, Rc, Cc]: the RD of each TU size over the whole frame, folded
+    bottom-up. Returns (cost [B,Rc,Cc] best-tree luma RD, rd_full
+    [B,Rc,Cc] unsplit-TU RD, tusz [B, h8, w8] per-slot leaf log2)."""
+    lam = rate.lambda_rd(qp)
+    top = min(cu_log2, 5)
+    bottom = max(2, cu_log2 - 3)
+    b = plane.shape[0]
+
+    rd_map = {}
+    for s_log2 in range(bottom, top + 1):
+        mode_s = _rep2(mode_cu, 1 << (cu_log2 - s_log2))
+        rd_map[s_log2] = _dense_rd_candidates(
+            plane, geom, 1 << s_log2, mode_s[..., None], qp, lam)[..., 0]
+
+    t = rd_map[bottom]
+    split = {}
+    oh = lam * 1.8    # split_transform_flag + duplicated chroma cbf bins
+    for s_log2 in range(bottom + 1, top + 1):
+        tsplit = _pool2(t) + oh
+        split[s_log2] = tsplit < rd_map[s_log2]
+        t = torch.minimum(rd_map[s_log2], tsplit)
+
+    if top < cu_log2:                 # CU64: four 32 trees, split inferred
+        cost, rd_full = _pool2(t), _pool2(rd_map[5])
+    else:
+        cost, rd_full = t, rd_map[top]
+
+    # leaf-size map at 8x8-slot granularity, top-down
+    tusz = torch.full((b, geom.hp // 8, geom.wp // 8), top, dtype=torch.int32,
+                      device=plane.device)
+    ex = None
+    for s_log2 in range(top, bottom, -1):
+        sp = split[s_log2]
+        if ex is not None:
+            sp = sp & ex
+        tusz = torch.where(_rep2(sp, max((1 << s_log2) // 8, 1)),
+                           s_log2 - 1, tusz)
+        ex = _rep2(sp, 2)
+    return cost, rd_full, tusz
+
+
+# ---------------------------------------------------------------------------
+# Stage 2: wavefront reconstruction
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _zorder_avail_np(oy: int, ox: int, n: int, span: int) -> np.ndarray:
+    """Static decoded-before mask [4n+1] for a TU at CTU-local origin
+    (oy, ox): z-order within the CTU, wavefront order across CTUs. The
+    in-picture check is applied separately."""
+    dy, dx = ctu.boundary_offsets(n)
+    ly, lx = oy + dy, ox + dx
+    same = (ly >= 0) & (lx >= 0) & (ly < span) & (lx < span)
+    zmap = ctu.morton(span // 4)
+    zb = zmap[np.clip(ly, 0, span - 1) // 4, np.clip(lx, 0, span - 1) // 4]
+    z_tu = zmap[oy // 4, ox // 4]
+    above = ly < 0
+    left_of = (lx < 0) & (ly >= 0) & (ly < span)
+    return np.where(same, zb < z_tu, above | left_of)
+
+
+@functools.lru_cache(maxsize=None)
+def _block16_schedule():
+    """Static per-iteration tables of the z-order scan over the 16 16-pel
+    blocks of a CTU: origins, quadrant-leader flags and decoded-before
+    vectors of the TU32/TU16/TU8/TU4 substeps (luma + chroma)."""
+    ty = np.zeros(16, np.int32)
+    tx = np.zeros(16, np.int32)
+    is_q = np.zeros(16, bool)
+    av32 = np.zeros((16, 129), bool)
+    av32c = np.zeros((16, 65), bool)
+    av16 = np.zeros((16, 65), bool)
+    av16c = np.zeros((16, 33), bool)
+    av8 = np.zeros((16, 4, 33), bool)
+    av8c = np.zeros((16, 4, 17), bool)
+    av4 = np.zeros((16, 4, 4, 17), bool)
+    for t in range(16):
+        qy, qx = ((t // 4) // 2) * 32, ((t // 4) % 2) * 32
+        y, x = qy + ((t % 4) // 2) * 16, qx + ((t % 4) % 2) * 16
+        ty[t], tx[t], is_q[t] = y, x, (t % 4) == 0
+        av32[t] = _zorder_avail_np(qy, qx, 32, 64)
+        av32c[t] = _zorder_avail_np(qy // 2, qx // 2, 16, 32)
+        av16[t] = _zorder_avail_np(y, x, 16, 64)
+        av16c[t] = _zorder_avail_np(y // 2, x // 2, 8, 32)
+        for e in range(4):
+            ey, ex = y + (e // 2) * 8, x + (e % 2) * 8
+            av8[t, e] = _zorder_avail_np(ey, ex, 8, 64)
+            av8c[t, e] = _zorder_avail_np(ey // 2, ex // 2, 4, 32)
+            for q in range(4):
+                av4[t, e, q] = _zorder_avail_np(ey + (q // 2) * 4,
+                                                ex + (q % 2) * 4, 4, 64)
+    return ty, tx, is_q, av32, av32c, av16, av16c, av8, av8c, av4
+
+
+@functools.lru_cache(maxsize=None)
+def _tu_order():
+    """The z-order TU steps of one CTU as (size, oy, ox): per 32-quadrant
+    a TU32 step, then per 16-block a TU16 step and per 8-slot a TU8 step
+    followed by its four TU4 steps (the JAX scan's order)."""
+    ty, tx = _block16_schedule()[:2]
+    steps = []
+    for t in range(16):
+        y, x = int(ty[t]), int(tx[t])
+        if t % 4 == 0:
+            steps.append((32, y, x))
+        steps.append((16, y, x))
+        for e in range(4):
+            ey, ex = y + (e // 2) * 8, x + (e % 2) * 8
+            steps.append((8, ey, ex))
+            steps += [(4, ey + (q // 2) * 4, ex + (q % 2) * 4)
+                      for q in range(4)]
+    return tuple(steps)
+
+
+class _Upload:
+    """Host arrays packed into one buffer per dtype and copied to the
+    device in one transfer; add() returns a handle that get() views."""
+
+    def __init__(self):
+        self._parts = {np.dtype(np.int64): [], np.dtype(bool): []}
+        self._size = dict.fromkeys(self._parts, 0)
+        self._buf = {}
+
+    def add(self, arr: np.ndarray):
+        arr = np.ascontiguousarray(arr)
+        key = arr.dtype
+        handle = (key, self._size[key], arr.shape)
+        self._parts[key].append(arr.ravel())
+        self._size[key] += arr.size
+        return handle
+
+    def upload(self, device: torch.device):
+        for key, parts in self._parts.items():
+            host = np.concatenate(parts) if parts else np.zeros(0, key)
+            self._buf[key] = torch.from_numpy(host).to(device)
+
+    def get(self, handle) -> torch.Tensor:
+        key, off, shape = handle
+        return self._buf[key][off: off + int(np.prod(shape))].view(shape)
+
+
+def _stage2_plan(geom: Geometry, tz: np.ndarray, c8: np.ndarray,
+                 upload: _Upload):
+    """Host plan of the wavefront: per diagonal the active CTUs (frame-
+    major rows) and the TU steps that fire for at least one of them, each
+    with its firing mask and availability (in picture & decoded before).
+    tz/c8 [B, rc, cc, 8, 8] are the leaf-TU-size and coded slot maps."""
+    act_r, act_c, act_m = geom.wavefront
+    b = tz.shape[0]
+    plan = []
+    for dr, dc, dm in zip(act_r, act_c, act_m):
+        r = np.tile(dr[dm].astype(np.int64), b)
+        c = np.tile(dc[dm].astype(np.int64), b)
+        bi = np.repeat(np.arange(b, dtype=np.int64), int(dm.sum()))
+        tzd, c8d = tz[bi, r, c], c8[bi, r, c]                # [BA, 8, 8]
+
+        def avail(oy, ox, n, cy, cx, hh, ww, span):
+            dy, dx = ctu.boundary_offsets(n)
+            fy = cy[:, None] + oy + dy
+            fx = cx[:, None] + ox + dx
+            inside = (fy >= 0) & (fx >= 0) & (fy < hh) & (fx < ww)
+            return upload.add(inside & _zorder_avail_np(oy, ox, n, span))
+
+        steps = []
+        for n, oy, ox in _tu_order():
+            sy, sx = oy // 8, ox // 8
+            coded = c8d[:, sy, sx]
+            leaf = tzd[:, sy, sx]
+            lum = coded & (leaf == int(np.log2(n)))
+            chro = coded & ((leaf <= 3) if n == 8 else lum)
+            lstep = cstep = None
+            if lum.any():
+                lstep = (upload.add(lum),
+                         avail(oy, ox, n, r * 64, c * 64, geom.h, geom.w, 64))
+            if n > 4 and chro.any():
+                cy, cx = np.tile(r * 32, 2), np.tile(c * 32, 2)
+                cstep = (upload.add(np.tile(chro, 2)),
+                         avail(oy // 2, ox // 2, n // 2, cy, cx,
+                               geom.h // 2, geom.w // 2, 32))
+            if lstep or cstep:
+                steps.append((n, oy, ox, lstep, cstep))
+        plan.append((upload.add(np.stack([bi, r, c])), steps))
+    return plan
+
+
+def _tu_step(ext, levels, orig, mode, fire, oy: int, ox: int, n: int,
+             qp: int, av, *, is_luma: bool, rdoq_lam: float, dst: bool,
+             ts_lam: float, rate_qp: int):
+    """One masked TU at CTU-local origin (oy, ox) for every row:
+    predict -> transform -> RDOQ (+TS trial at 4x4) -> SBH -> dequant ->
+    inverse -> recon. Updates ext and levels in place where `fire`.
+
+    ext [R, span+1+span//2, 2span+2] is the extended CTU-local recon
+    (row 0 = above strip, column 0 = left strip, (1+y, 1+x) = pixel
+    (y, x); the extra rows/cols are never-available filler). av [R, 4n+1]
+    is the availability of the boundary samples. Returns (cbf & fire,
+    transform-skip & cbf & fire)."""
+    assert (0 <= oy and oy + 2 * n + 1 <= ext.shape[1]
+            and 0 <= ox and ox + 2 * n + 1 <= ext.shape[2])
+    # boundary in scan order: left column bottom-to-top, corner, top row
+    vals = torch.cat([ext[:, oy + 1: oy + 1 + 2 * n, ox].flip(-1),
+                      ext[:, oy, ox: ox + 2 * n + 1]], dim=1)
+    filled = intra.fill_reference(vals, av)
+    top_e, left_e = intra.split_boundary(filled, n)
+    top_f, left_f = intra.smooth_reference(top_e, left_e, n)
+    pred = intra_mm.predict_selected_mode_mm(top_e, left_e, top_f, left_f,
+                                             mode, n, is_luma=is_luma)
+    res = orig[:, oy: oy + n, ox: ox + n] - pred
+    log2 = int(np.log2(n))
+    coef = transforms.forward_transform(res, log2, dst=dst)
+    scan_tu = quant.scan_sel(mode, log2, is_luma)
+    lvl = quant.quantize_rdoq(coef, log2, qp, rdoq_lam, scan=scan_tu,
+                              rate_qp=rate_qp)
+    use_ts = None
+    if n == 4:
+        # transform-skip trial: the scaled residual quantizes in the same
+        # dynamic range as the transform, so the two candidates compare
+        # directly in the coefficient domain.
+        shift = rom.MAX_TR_DYNAMIC_RANGE - 8 - log2
+        coef_s = res * (1 << shift)
+        lvl_s = quant.quantize_rdoq(coef_s, log2, qp, rdoq_lam, scan=scan_tu,
+                                    rate_qp=rate_qp)
+        dscale = 4.0 ** (log2 - 7)
+        lam_u = ts_lam / rate.BITS_ONE
+
+        def j_cost(lv, cf):
+            d = quant.exact_sq_sum(cf - quant.dequantize(lv, log2, qp))
+            return d * dscale + lam_u * rate.estimate_tu_bits(
+                lv, log2, rate_qp).to(torch.float32)
+
+        use_ts = j_cost(lvl_s, coef_s) < j_cost(lvl, coef)
+        lvl = torch.where(use_ts[:, None, None], lvl_s, lvl)
+        coef = torch.where(use_ts[:, None, None], coef_s, coef)
+    lvl = quant.sign_bit_hide(lvl, coef, log2, qp, scan_tu)
+    cbf = (lvl != 0).flatten(1).any(dim=1)
+    deq = quant.dequantize(lvl, log2, qp)
+    rinv = transforms.inverse_transform(deq, log2, dst=dst)
+    if use_ts is not None:
+        shift = rom.MAX_TR_DYNAMIC_RANGE - 8 - log2
+        rinv = torch.where(use_ts[:, None, None],
+                           (deq + (1 << (shift - 1))) >> shift, rinv)
+    recon = torch.clamp(pred + rinv, 0, 255)
+
+    fb = fire[:, None, None]
+    win = ext[:, oy + 1: oy + 1 + n, ox + 1: ox + 1 + n]
+    win.copy_(torch.where(fb, recon, win))
+    lwin = levels[:, oy: oy + n, ox: ox + n]
+    lwin.copy_(torch.where(fb, lvl, lwin))
+    cbf = cbf & fire
+    return cbf, (use_ts & cbf if use_ts is not None
+                 else torch.zeros_like(cbf))
+
+
+def _make_ext(top: torch.Tensor, left: torch.Tensor,
+              span: int) -> torch.Tensor:
+    """[R, span+1+span//2, 2span+2] extended local buffer: row 0 = above
+    strip (corner + above + above-right, last sample repeated), column 0
+    = left strip, everything else zero until TUs write it."""
+    ext = torch.zeros((top.shape[0], span + 1 + span // 2, 2 * span + 2),
+                      dtype=torch.int32, device=top.device)
+    ext[:, 0, : 2 * span + 1] = top
+    ext[:, 0, 2 * span + 1] = top[:, -1]
+    ext[:, 1: span + 1, 0] = left
+    return ext
+
+
+def _checksum_plane(plane: torch.Tensor) -> torch.Tensor:
+    """[B, H, W] pels -> [B] int64 holding the uint32 checksum picture
+    hash (TComPicYuvMD5::compChecksum)."""
+    h, w = plane.shape[-2:]
+    x = torch.arange(w, device=plane.device)
+    y = torch.arange(h, device=plane.device)
+    mask = (((y & 0xff) ^ (y >> 8))[:, None]
+            ^ ((x & 0xff) ^ (x >> 8))[None, :]) & 0xff
+    vals = (plane.to(torch.int64) & 0xff) ^ mask
+    return vals.sum(dim=(-2, -1)) & 0xffffffff
+
+
+def _sse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    d = (a.to(torch.int64) - b.to(torch.int64))
+    return (d * d).sum(dim=(-2, -1)).to(torch.float32)
+
+
+class _StageClock:
+    """Stage boundary marks of one encode: CUDA events on the card (device
+    time between marks), the host clock on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.marks = []
+
+    def mark(self, name: str):
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append((name, ev))
+        else:
+            self.marks.append((name, time.perf_counter()))
+
+    def ms(self) -> dict:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            return {n: a.elapsed_time(b) for (_, a), (n, b)
+                    in zip(self.marks, self.marks[1:])}
+        return {n: (b - a) * 1e3 for (_, a), (n, b)
+                in zip(self.marks, self.marks[1:])}
+
+
+_OUT_CAST = {"recon_y": torch.uint8, "recon_u": torch.uint8,
+             "recon_v": torch.uint8, "levels_y": torch.int16,
+             "levels_u": torch.int16, "levels_v": torch.int16,
+             "depth8": torch.int8, "mode8": torch.int8, "mode4": torch.int8,
+             "csel8": torch.int8, "tusz8": torch.int8,
+             "sao_type": torch.int8, "sao_eo": torch.int8,
+             "sao_bp": torch.int8, "sao_off": torch.int8,
+             "sao_merge": torch.int8}
+
+# The slice's settings; any other value of these is not ported yet.
+_PORTED = dict(deblock=True, search="cnn", rdoq=True, sao=True, sbh=True,
+               nxn=True, tu_split=True, ts=True, two_pass=False,
+               rate_model="global")
+
+
+class FrameEncoder:
+    """Encodes batches of frames of one geometry at one QP on one device.
+
+    The CU quadtree is the CNN's pruned prediction (search="cnn"), the
+    reference pipeline's gate semantics; labels come from the caller
+    (encode) or from ConvNet2 on the same device (encode_fused)."""
+
+    def __init__(self, h: int, w: int, qp: int, *, device=None, **options):
+        if h % 8 or w % 8:
+            raise ValueError("HEVC requires dims % minCU == 0")
+        unknown = set(options) - set(_PORTED)
+        if unknown:
+            raise TypeError(f"unknown FrameEncoder options {sorted(unknown)}")
+        off = {k: v for k, v in options.items() if v != _PORTED[k]}
+        if off:
+            raise NotImplementedError(
+                f"FrameEncoder options {off} are not ported; the port runs "
+                f"the default slice {_PORTED}")
+        self.device = get_device(device)
+        self.geom = Geometry(h, w)
+        self.qp = int(qp)
+        self.qp_c = rom.chroma_qp_from_luma(self.qp)
+        self.sbh = True
+        lam = rate.lambda_rd(self.qp)
+        w_c = rate.chroma_dist_weight(self.qp, self.qp_c)
+        # RDOQ and the TS trial use λ; chroma distortion is weighted by
+        # w_c in the RD cost, so chroma's effective λ is λ / w_c.
+        self.rdoq_lam = self.ts_lam = lam
+        self.rdoq_lam_c = self.ts_lam_c = lam / w_c
+        self._clock = _StageClock(self.device)
+
+    # -- public API --------------------------------------------------------
+
+    def _to_device(self, *planes):
+        return [torch.as_tensor(np.asarray(p, np.uint8)).to(self.device)
+                for p in planes]
+
+    def encode(self, y, u, v, labels=None, qp_map=None) -> dict:
+        """y [B,H,W], u/v [B,H/2,W/2] uint8-valued; labels [B, rc*cc, 16]
+        (required: search="cnn"). Returns a dict of numpy arrays."""
+        if qp_map is not None:
+            raise NotImplementedError("per-CTU qp_map is not ported")
+        if labels is None:
+            raise ValueError("search='cnn' needs labels")
+        self._clock = _StageClock(self.device)
+        self._clock.mark("start")
+        y, u, v = self._to_device(y, u, v)
+        lab = torch.as_tensor(np.asarray(labels, np.int8)).to(self.device)
+        self._clock.mark("upload")
+        return self.collect(self._encode_impl(y, u, v, lab.to(torch.int32)))
+
+    def encode_fused(self, cnn, y, u, v, *, lite: bool = False) -> dict:
+        """ConvNet2 depth labels + encode on the encoder's device; cnn is a
+        ConvNet2 (models.convnet2.load_model) on that device."""
+        return self.collect(self.encode_fused_dispatch(cnn, y, u, v,
+                                                       lite=lite), lite=lite)
+
+    def encode_fused_dispatch(self, cnn, y, u, v, *,
+                              lite: bool = False) -> dict:
+        """Enqueue the labels + encode and return the on-device output
+        dict (tensors); pass it to collect(). Stage 2 reads the partition
+        to the host once to plan its steps."""
+        from hevctpu_torch.models import convnet2
+
+        if lite:
+            raise NotImplementedError("lite transfer is not ported")
+        dev = next(cnn.parameters()).device
+        if dev != self.device:
+            raise ValueError(f"ConvNet2 is on {dev}, the encoder on "
+                             f"{self.device}")
+        self._clock = _StageClock(self.device)
+        self._clock.mark("start")
+        y, u, v = self._to_device(y, u, v)
+        self._clock.mark("upload")
+        g = self.geom
+        labels = convnet2.predict_frame_labels(
+            cnn, y.to(torch.int32), u.to(torch.int32), v.to(torch.int32),
+            g.h, g.w)
+        self._clock.mark("cnn")
+        out = self._encode_impl(y, u, v, labels.to(torch.int32))
+        out["labels"] = labels.to(torch.int8)
+        return out
+
+    def collect(self, dev_out: dict, *, lite: bool = False) -> dict:
+        """Fetch a dispatched output dict to host numpy arrays."""
+        if lite:
+            raise NotImplementedError("lite transfer is not ported")
+        out = {k: t.cpu().numpy() for k, t in dev_out.items()}
+        out["hash_checksum"] = out["hash_checksum"].astype(np.uint32)
+        out["sbh"] = np.bool_(self.sbh)
+        return out
+
+    def stage_ms(self) -> dict:
+        """Milliseconds of each stage of the last encode (upload, cnn,
+        stage1, stage2, filters), waiting for the device to finish."""
+        return self._clock.ms()
+
+    # -- implementation ----------------------------------------------------
+
+    def _encode_impl(self, y, u, v, labels):
+        g = self.geom
+        yp = pad_plane(y.to(torch.int32), g.hp, g.wp)
+        up = pad_plane(u.to(torch.int32), g.hp // 2, g.wp // 2)
+        vp = pad_plane(v.to(torch.int32), g.hp // 2, g.wp // 2)
+        dec = self._decide(yp, up, vp, labels)
+        self._clock.mark("stage1")
+        out = self._reconstruct(yp, up, vp, dec["mode_slot"],
+                                dec["cmode_slot"],
+                                to_blocked(dec["tusz_frame"], 8),
+                                dec["coded8"],
+                                to_blocked(dec["mode4_frame"], 16))
+        self._clock.mark("stage2")
+        out["depth8"] = from_blocked(dec["depth8"])
+        out["coded8"] = from_blocked(dec["coded8"])
+        out["mode8"] = dec["mode8_frame"]
+        out["csel8"] = dec["csel8_frame"]
+        out["nxn8"] = dec["nxn8_frame"]
+        out["mode4"] = dec["mode4_frame"]
+        out["tusz8"] = dec["tusz_frame"]
+        out = self._loop_filters_and_cast(yp, up, vp, out, dec["tusz_frame"])
+        self._clock.mark("filters")
+        return out
+
+    def _decide(self, yp, up, vp, labels):
+        """Stage 1: all mode/partition/TU decisions for the batch."""
+        g = self.geom
+        b = yp.shape[0]
+        modes, costs = _dense_mode_decision(yp, g, self.qp)
+
+        # Intra TU quadtree per CU size. Only the 8x8 CU's cost is read
+        # again (by the NxN decision below): the other sizes' costs feed
+        # the RD quadtree search, which the CNN path does not run.
+        tz = {}
+        for n, cu_log2 in ((64, 6), (32, 5), (16, 4), (8, 3)):
+            t_cost, rd_full, tz[n] = _tu_tree_decision(yp, g, self.qp,
+                                                       cu_log2, modes[n])
+            if n == 8:
+                costs[8] = costs[8] + (t_cost - rd_full)
+
+        # PART_NxN vs PART_2Nx2N at depth 3: four 4x4 DST TUs with their
+        # own modes vs one 8x8 TU.
+        nxn_map = _pool2(costs[4]) < costs[8]
+
+        csel, cmodes = _dense_chroma_decision(up, vp, g, self.qp, self.qp_c,
+                                              modes)
+
+        bh, bw = (torch.as_tensor(x, device=yp.device) for x in g.bh_bw)
+        depth8, coded8 = ctu.derive_slot_depths(
+            labels.reshape(b, g.rc, g.cc, 16), bh[None, :, None],
+            bw[None, None, :])                       # [B, rc, cc, 8, 8]
+
+        def slot_map(per_size):  # the CU's value at every 8x8 slot
+            return torch.where(
+                depth8 == 0, per_size[64][..., None, None],
+                torch.where(depth8 == 1, _rep2(to_blocked(per_size[32], 2), 4),
+                            torch.where(depth8 == 2,
+                                        _rep2(to_blocked(per_size[16], 4), 2),
+                                        to_blocked(per_size[8], 8))))
+
+        mode_slot = slot_map(modes)
+        cmode_slot = slot_map(cmodes)
+        csel_slot = slot_map(csel)
+
+        # NxN slots + the per-4x4 luma mode map (each NxN PU its own mode)
+        nxn_slot = to_blocked(nxn_map, 8) & (depth8 == 3) & coded8
+        nxn8_frame = from_blocked(nxn_slot)
+        mode8_frame = from_blocked(mode_slot)
+        mode4_frame = torch.where(_rep2(nxn8_frame, 2), modes[4],
+                                  _rep2(mode8_frame, 2))
+
+        # chroma DM of NxN CUs resolves against PU0's luma mode (8.4.3)
+        csel8_frame = from_blocked(csel_slot)
+        cmode8_frame = from_blocked(cmode_slot)
+        pu0 = modes[4][:, ::2, ::2]
+        cand = torch.as_tensor(_CHROMA_LIST, device=yp.device)[
+            torch.clamp(csel8_frame, 0, 3).long()]
+        cand = torch.where(cand == pu0, 34, cand)
+        resolved = torch.where(csel8_frame == 4, pu0, cand)
+        cmode8_frame = torch.where(nxn8_frame, resolved, cmode8_frame)
+
+        # per-slot leaf TU size: the chosen CU size's tree (2 = four 4x4)
+        d8f = from_blocked(depth8)
+        tusz_frame = torch.where(
+            d8f == 0, tz[64], torch.where(d8f == 1, tz[32], torch.where(
+                d8f == 2, tz[16], tz[8])))
+        tusz_frame = torch.where(nxn8_frame, 2, tusz_frame).to(torch.int32)
+
+        return dict(mode_slot=mode_slot,
+                    cmode_slot=to_blocked(cmode8_frame, 8),
+                    tusz_frame=tusz_frame, coded8=coded8, depth8=depth8,
+                    mode4_frame=mode4_frame, mode8_frame=mode8_frame,
+                    csel8_frame=csel8_frame, nxn8_frame=nxn8_frame)
+
+    def _loop_filters_and_cast(self, yp, up, vp, out, tusz_frame):
+        """Deblock, then SAO against the original, crop, picture digests
+        and SSE, and the output casts."""
+        g = self.geom
+        fy, fu, fv = deblock.deblock_frame(
+            out["recon_y"], out["recon_u"], out["recon_v"], tusz_frame,
+            self.qp, g.h, g.w)
+        ys = sao.ctu_stats(yp, fy, g.h, g.w, 64)
+        us = sao.ctu_stats(up, fu, g.h // 2, g.w // 2, 32)
+        vs = sao.ctu_stats(vp, fv, g.h // 2, g.w // 2, 32)
+        st, se, sbp, soff, smrg = sao.decide_params(ys, us, vs, self.qp,
+                                                    self.qp_c)
+        fy = sao.apply_sao(fy, st, se, sbp, soff, 0, g.h, g.w, 64)
+        fu = sao.apply_sao(fu, st, se, sbp, soff, 1, g.h // 2, g.w // 2, 32)
+        fv = sao.apply_sao(fv, st, se, sbp, soff, 2, g.h // 2, g.w // 2, 32)
+        out["sao_type"], out["sao_eo"] = st, se
+        out["sao_bp"], out["sao_off"] = sbp, soff
+        out["sao_merge"] = smrg
+        out["recon_y"] = fy[:, : g.h, : g.w]
+        out["recon_u"] = fu[:, : g.h // 2, : g.w // 2]
+        out["recon_v"] = fv[:, : g.h // 2, : g.w // 2]
+        out["hash_checksum"] = torch.stack(
+            [_checksum_plane(out[k]) for k in ("recon_y", "recon_u",
+                                               "recon_v")], dim=-1)
+        out["sse"] = torch.stack(
+            [_sse(out["recon_y"], yp[:, : g.h, : g.w]),
+             _sse(out["recon_u"], up[:, : g.h // 2, : g.w // 2]),
+             _sse(out["recon_v"], vp[:, : g.h // 2, : g.w // 2])], dim=-1)
+        return {k: (t.to(_OUT_CAST[k]) if k in _OUT_CAST else t)
+                for k, t in out.items()}
+
+    def _reconstruct(self, yp, up, vp, mode_slot, cmode_slot, tusz_slot,
+                     coded8, mode4_blk):
+        """Wavefront reconstruction (single device): diagonals in order,
+        the planned TU steps of each in z-order."""
+        g = self.geom
+        b = yp.shape[0]
+        dev = yp.device
+        rc, cc = g.rc, g.cc
+        i32 = torch.int32
+
+        def zeros(*shape, dtype=i32):
+            return torch.zeros((b, rc, cc) + shape, dtype=dtype, device=dev)
+
+        oy_b, ou_b, ov_b = (to_blocked(yp, 64), to_blocked(up, 32),
+                            to_blocked(vp, 32))
+        ry, ru, rv = zeros(64, 64), zeros(32, 32), zeros(32, 32)
+        lvy, lvu, lvv = zeros(64, 64), zeros(32, 32), zeros(32, 32)
+        cby, cbu, cbv = (zeros(8, 8, dtype=torch.bool) for _ in range(3))
+        cb4, t4b = (zeros(16, 16, dtype=torch.bool) for _ in range(2))
+        tub, tvb = (zeros(8, 8, dtype=torch.bool) for _ in range(2))
+
+        upload = _Upload()
+        plan = _stage2_plan(g, tusz_slot.cpu().numpy(),
+                            coded8.cpu().numpy(), upload)
+        upload.upload(dev)
+
+        for idx, steps in plan:
+            bi, ri, ci = upload.get(idx)
+            ba = bi.shape[0]
+            rim = torch.clamp_min(ri - 1, 0)
+            cim = torch.clamp_min(ci - 1, 0)
+            cip = torch.clamp_max(ci + 1, cc - 1)
+
+            def strips(rp, span):
+                # neighbor strips (clamped indices; masked by availability)
+                top = torch.cat([rp[bi, rim, cim, span - 1, span - 1][:, None],
+                                 rp[bi, rim, ci, span - 1, :],
+                                 rp[bi, rim, cip, span - 1, :]], dim=-1)
+                return top, rp[bi, ri, cim, :, span - 1]
+
+            top_y, left_y = strips(ry, 64)
+            top_u, left_u = strips(ru, 32)
+            top_v, left_v = strips(rv, 32)
+            ext_y = _make_ext(top_y, left_y, 64)
+            ext_c = _make_ext(torch.cat([top_u, top_v]),
+                              torch.cat([left_u, left_v]), 32)
+            oyl = oy_b[bi, ri, ci]                             # [BA, 64, 64]
+            ouv = torch.cat([ou_b[bi, ri, ci], ov_b[bi, ri, ci]])
+            msl = mode_slot[bi, ri, ci]                        # [BA, 8, 8]
+            cm8 = cmode_slot[bi, ri, ci]
+            mm4 = mode4_blk[bi, ri, ci]                        # [BA, 16, 16]
+            vy = torch.zeros((ba, 64, 64), dtype=i32, device=dev)
+            vc = torch.zeros((2 * ba, 32, 32), dtype=i32, device=dev)
+            cy8 = torch.zeros((ba, 8, 8), dtype=torch.bool, device=dev)
+            cc8 = torch.zeros((2 * ba, 8, 8), dtype=torch.bool, device=dev)
+            cy4 = torch.zeros((ba, 16, 16), dtype=torch.bool, device=dev)
+            ty4 = torch.zeros((ba, 16, 16), dtype=torch.bool, device=dev)
+            tc8 = torch.zeros((2 * ba, 8, 8), dtype=torch.bool, device=dev)
+
+            for n, oy, ox, lstep, cstep in steps:
+                if n == 4:
+                    fire, av = (upload.get(h) for h in lstep)
+                    sy, sx = oy // 4, ox // 4
+                    cbf, ts = _tu_step(
+                        ext_y, vy, oyl, mm4[:, sy, sx], fire, oy, ox, 4,
+                        self.qp, av, is_luma=True, rdoq_lam=self.rdoq_lam,
+                        dst=True, ts_lam=self.ts_lam, rate_qp=self.qp)
+                    cy4[:, sy, sx] = torch.where(fire, cbf, cy4[:, sy, sx])
+                    ty4[:, sy, sx] = torch.where(fire, ts, ty4[:, sy, sx])
+                    continue
+                sy, sx = oy // 8, ox // 8
+                if lstep:
+                    fire, av = (upload.get(h) for h in lstep)
+                    cbf, _ = _tu_step(
+                        ext_y, vy, oyl, msl[:, sy, sx], fire, oy, ox, n,
+                        self.qp, av, is_luma=True, rdoq_lam=self.rdoq_lam,
+                        dst=False, ts_lam=0.0, rate_qp=self.qp)
+                    cy8[:, sy, sx] = torch.where(fire, cbf, cy8[:, sy, sx])
+                if cstep:
+                    fire, av = (upload.get(h) for h in cstep)
+                    cbf, ts = _tu_step(
+                        ext_c, vc, ouv, cm8[:, sy, sx].repeat(2), fire,
+                        oy // 2, ox // 2, n // 2, self.qp_c, av,
+                        is_luma=False, rdoq_lam=self.rdoq_lam_c, dst=False,
+                        ts_lam=self.ts_lam_c, rate_qp=self.qp_c)
+                    cc8[:, sy, sx] = torch.where(fire, cbf, cc8[:, sy, sx])
+                    tc8[:, sy, sx] = torch.where(fire, ts, tc8[:, sy, sx])
+
+            # scatter the CTUs' local results (every index is distinct)
+            ry[bi, ri, ci] = ext_y[:, 1:65, 1:65]
+            ru[bi, ri, ci] = ext_c[:ba, 1:33, 1:33]
+            rv[bi, ri, ci] = ext_c[ba:, 1:33, 1:33]
+            lvy[bi, ri, ci] = vy
+            lvu[bi, ri, ci] = vc[:ba]
+            lvv[bi, ri, ci] = vc[ba:]
+            cby[bi, ri, ci] = cy8
+            cbu[bi, ri, ci] = cc8[:ba]
+            cbv[bi, ri, ci] = cc8[ba:]
+            cb4[bi, ri, ci] = cy4
+            t4b[bi, ri, ci] = ty4
+            tub[bi, ri, ci] = tc8[:ba]
+            tvb[bi, ri, ci] = tc8[ba:]
+
+        return {
+            "recon_y": from_blocked(ry), "recon_u": from_blocked(ru),
+            "recon_v": from_blocked(rv),
+            "levels_y": from_blocked(lvy), "levels_u": from_blocked(lvu),
+            "levels_v": from_blocked(lvv),
+            "cbf_y": from_blocked(cby), "cbf_u": from_blocked(cbu),
+            "cbf_v": from_blocked(cbv), "cbf4_y": from_blocked(cb4),
+            "ts4_y": from_blocked(t4b), "ts8_u": from_blocked(tub),
+            "ts8_v": from_blocked(tvb),
+        }

@@ -1,0 +1,83 @@
+"""The PyTorch port stands alone: it imports neither jax nor the JAX package,
+and its entry points run on the card unless the caller names the CPU."""
+
+import os
+import re
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from hevctpu_torch import get_device
+from hevctpu_torch.pipeline.encoder import FrameEncoder
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_imports_without_jax_or_reference():
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        sys.modules["jax"] = None          # any `import jax` now fails
+        import hevctpu_torch
+        for m in pkgutil.walk_packages(hevctpu_torch.__path__,
+                                       "hevctpu_torch."):
+            importlib.import_module(m.name)
+        import chip_smoke
+        bad = [k for k in sys.modules
+               if k == "hevctpu" or k.startswith("hevctpu.")]
+        assert not bad, bad
+        print("isolated")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "isolated" in proc.stdout
+
+
+def test_no_import_lines_of_jax_or_reference():
+    pat = re.compile(r"^\s*(import|from) (jax|hevctpu)(\.|\s|$)")
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "hevctpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    hits = [(f, i + 1) for f in files
+            for i, line in enumerate(open(f, encoding="utf-8"))
+            if pat.match(line)]
+    assert not hits, hits
+
+
+def test_default_device_is_cuda_and_raises_without_it():
+    if torch.cuda.is_available():
+        assert FrameEncoder(64, 128, 32).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            FrameEncoder(64, 128, 32)
+    assert get_device("cpu") == torch.device("cpu")
+
+
+def test_tf32_is_off():
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+
+
+@pytest.mark.parametrize("option", [
+    {"search": "rd"}, {"rate_model": "ctx"}, {"two_pass": True},
+    {"rdoq": False}, {"sao": False}, {"tu_split": False}])
+def test_unported_options_raise(option):
+    with pytest.raises(NotImplementedError):
+        FrameEncoder(64, 128, 32, device="cpu", **option)
+
+
+def test_unported_calls_raise():
+    enc = FrameEncoder(64, 128, 32, device="cpu")
+    y = np.zeros((1, 64, 128), np.uint8)
+    c = np.zeros((1, 32, 64), np.uint8)
+    labels = np.zeros((1, 2, 16), np.int32)
+    with pytest.raises(NotImplementedError):
+        enc.encode(y, c, c, labels, qp_map=np.full((1, 1, 2), 32))
+    with pytest.raises(NotImplementedError):
+        enc.collect({}, lite=True)
+    with pytest.raises(ValueError):
+        enc.encode(y, c, c)
