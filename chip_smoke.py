@@ -6,8 +6,11 @@ Phases (each fails the run with a nonzero exit):
   1. the card's name and power limit; build every CUDA kernel from the
      checkout's sources (nvcc, sm_90a);
   2. K1 (fused SATD mode search) against its plain PyTorch version on the
-     card, n in {4, 8, 16, 32} x {luma, chroma}, at M = 37 and at the M of
-     a 1080p frame: bit-identical; kernel and plain-version times;
+     card, n in {4, 8, 16, 32} x {luma, chroma}, at M = 1, 37, one tile
+     + 1 and the M of a 1080p frame: bit-identical; then, at the main
+     path's two shapes (1080p and 416x240 x 8), bit-identical again on
+     the timed inputs, and kernel and plain-version times beside K1's
+     bound (bytes, integer instructions);
   3. ConvNet2 labels on the card equal the CPU port's on a 416x240 frame;
   4. the main path at 416x240, 8 frames: encode_fused_dispatch + collect +
      encode_stream, decoded back with the hash SEI verifying, K1 launched
@@ -35,9 +38,10 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 QP = 32
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
-CUDA_CORE_OPS_PER_S = 67e12      # H100 SXM non-tensor FP32 rate; int32
-#                                  adds/multiplies counted at this rate
+INT32_LANES = 132 * 64           # H100 SXM: 132 SMs x 64 INT32 lanes
+#                                  (Hopper white paper), at the SM clock
 M_1080P = {4: 130560, 8: 32640, 16: 8160, 32: 2040}   # 1920x1088 blocks
+M_416X240X8 = {4: 57344, 8: 14336, 16: 3584, 32: 896}  # 8 x 256x448
 
 
 def log(*a):
@@ -50,11 +54,15 @@ def fail(msg: str):
 
 
 def cuda_ms(fn, reps: int) -> float:
+    """Device ms per call of fn, warm. A ~10 ms spin kernel goes first so
+    the host queues every call before the card reaches the first: the
+    events then time the calls back to back, without host gaps."""
     import torch
     fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     t0.record()
     for _ in range(reps):
         fn()
@@ -79,31 +87,40 @@ def k1_inputs(rng, m: int, n: int, device):
     return refs.to(device), orig.to(device)
 
 
-def k1_bound(n: int, m: int) -> tuple[float, str, float, float]:
-    """(bound seconds, what bounds it, bytes, operations) of one K1 call:
-    refs, orig read once and costs written once; prediction taps
-    (a multiply and an add per nonzero weight of P) plus per mode the
-    2-D Hadamard butterflies, magnitudes and sums."""
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock, from nvidia-smi."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    try:
+        return float(out.stdout.split()[0]) * 1e6
+    except (IndexError, ValueError):
+        fail(f"nvidia-smi gave no SM clock: {out.stdout!r} {out.stderr!r}")
+
+
+def k1_bound(n: int, m: int, sm_hz: float):
+    """(bytes s, operations s, bytes, operations) of one K1 call: refs and
+    orig read once, costs written once; one integer instruction (a
+    multiply-add) per nonzero entry of P, plus per pixel and mode the
+    2-D Hadamard butterfly adds, one magnitude and one sum, over the
+    card's INT32 lanes. The count is the algorithm's, whatever unit runs
+    it."""
     from hevctpu_torch.ops import intra_mm
     k = 8 * n + 5
     nbytes = m * (k + n * n + 35) * 4
     nnz = int(np.count_nonzero(intra_mm.prediction_tensor(n, True)[0]))
     s = 4 if n == 4 else 8
-    ops = m * (2 * nnz + 35 * n * n * (2 * int(np.log2(s)) + 2))
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / CUDA_CORE_OPS_PER_S
-    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), \
-        nbytes, ops
+    ops = m * (nnz + 35 * n * n * (2 * int(np.log2(s)) + 2))
+    return nbytes / HBM_BYTES_PER_S, ops / (INT32_LANES * sm_hz), nbytes, ops
 
 
-def phase_k1(rng, dev):
+def phase_k1(rng, dev, sm_hz):
     import torch
     from hevctpu_torch.ops import satd_fused
     max_err = 0
-    ms = plain_ms = bound_s = 0.0
-    bound_by = {}
     for n in (4, 8, 16, 32):
         for is_luma in (True, False):
-            for m in (37, M_1080P[n]):
+            for m in (1, 37, satd_fused.tile_rows(n) + 1, M_1080P[n]):
                 refs, orig = k1_inputs(rng, m, n, dev)
                 got = satd_fused.mode_satd_costs(refs, orig, n,
                                                  is_luma=is_luma)
@@ -117,20 +134,48 @@ def phase_k1(rng, dev):
                 if err:
                     fail(f"K1 disagrees with its plain version (n={n}, "
                          f"luma={is_luma}, M={m})")
-        # time at the main path's shapes: luma, one 1080p frame
-        refs, orig = k1_inputs(rng, M_1080P[n], n, dev)
-        t_k = cuda_ms(lambda: satd_fused.mode_satd_costs(refs, orig, n), 20)
-        t_p = cuda_ms(lambda: satd_fused.mode_satd_costs_ref(refs, orig, n),
-                      5)
-        b, by, nbytes, ops = k1_bound(n, M_1080P[n])
-        ms, plain_ms, bound_s = ms + t_k, plain_ms + t_p, bound_s + b
-        bound_by[n] = by
-        log(f"  K1 n={n:2d} M={M_1080P[n]:6d}: kernel {t_k:.4f} ms, plain "
-            f"{t_p:.4f} ms, bound {b * 1e3:.4f} ms ({by}; {nbytes} bytes, "
-            f"{ops} ops), library_ms: n/a")
-    by = max(set(bound_by.values()), key=list(bound_by.values()).count)
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_s * 1e3, bound_by=by)
+    shapes = {}
+    for shape, ms_of in (("1920x1080", M_1080P), ("416x240x8", M_416X240X8)):
+        tot = dict(ms=0.0, plain_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
+                   bound_ms=0.0)
+        per_n = {}
+        for n in (4, 8, 16, 32):
+            m = ms_of[n]
+            refs, orig = k1_inputs(rng, m, n, dev)
+            err = int((satd_fused.mode_satd_costs(refs, orig, n).long()
+                       - satd_fused.mode_satd_costs_ref(refs, orig, n).long())
+                      .abs().max())
+            max_err = max(max_err, err)
+            if err:
+                fail(f"K1 disagrees with its plain version on the timed "
+                     f"inputs ({shape}, n={n}, M={m}): max |err| {err}")
+            t_k = cuda_ms(lambda: satd_fused.mode_satd_costs(refs, orig, n),
+                          50)
+            t_p = cuda_ms(lambda: satd_fused.mode_satd_costs_ref(refs, orig,
+                                                                 n), 5)
+            t_b, t_o, nbytes, ops = k1_bound(n, m, sm_hz)
+            bound = max(t_b, t_o) * 1e3
+            row = dict(M=m, ms=t_k, plain_ms=t_p, bytes_ms=t_b * 1e3,
+                       ops_ms=t_o * 1e3, bound_ms=bound,
+                       share_of_bound=bound / t_k, bytes=nbytes, ops=ops)
+            per_n[n] = row
+            for key in tot:
+                tot[key] += row[key]
+            log(f"  K1 {shape} n={n:2d} M={m:6d}: max |kernel - plain| = "
+                f"{err}; kernel {t_k:.4f} ms, plain "
+                f"{t_p:.4f} ms, bound: bytes {t_b * 1e3:.4f} ms ({nbytes} B)"
+                f", integer ops {t_o * 1e3:.4f} ms ({ops}); kernel at "
+                f"{bound / t_k:.3f} of the bound")
+        tot["share_of_bound"] = tot["bound_ms"] / tot["ms"]
+        log(f"  K1 {shape} all n: kernel {tot['ms']:.4f} ms, plain "
+            f"{tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms, "
+            f"kernel at {tot['share_of_bound']:.3f} of the bound")
+        shapes[shape] = dict(total=tot, per_n=per_n)
+    hd = shapes["1920x1080"]["total"]
+    return dict(max_abs_err=max_err, ms=hd["ms"], plain_ms=hd["plain_ms"],
+                bound_ms=hd["bound_ms"],
+                bound_by=("operations" if hd["ops_ms"] >= hd["bytes_ms"]
+                          else "bytes"), shapes=shapes)
 
 
 def load_cnn(device):
@@ -236,13 +281,18 @@ def main() -> int:
     log(card)
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
-    build_s = satd_fused.build()
-    log(f"  K1 built in {build_s:.2f} s (nvcc, sm_90a)")
+    build_s, ptxas = satd_fused.build()
+    log(f"  K1 built in {build_s:.2f} s (nvcc, sm_90a); ptxas -v:")
+    for line in ptxas.splitlines():
+        log(f"    {line.strip()}")
+    sm_hz = sm_clock_hz()
+    log(f"  max SM clock {sm_hz / 1e6:.0f} MHz: {INT32_LANES * sm_hz:.4g} "
+        f"INT32 instructions/s")
 
     rng = np.random.default_rng(0)
     log("phase 2: K1 against its plain version on the card "
         "(tolerance 0: bit-identical)")
-    k1 = phase_k1(rng, dev)
+    k1 = phase_k1(rng, dev, sm_hz)
 
     log("phase 3: ConvNet2 labels, card vs CPU (416x240)")
     from hevctpu_torch.models import convnet2
@@ -297,7 +347,8 @@ def main() -> int:
                     library_ms=None)]
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"paths": {"416x240": sd, "1920x1080": hd},
-                      "k1_build_s": build_s}))
+                      "k1_build_s": build_s, "k1": k1["shapes"],
+                      "sm_clock_hz": sm_hz}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

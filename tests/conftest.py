@@ -29,6 +29,9 @@ def pytest_configure(config):
         "markers", "slow: heavy end-to-end/parametrization tier — "
         "`pytest -m 'not slow'` is the <5-minute default tier that still "
         "covers every module; the full suite runs it all")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (skips without one); on the card "
+        "run `python -m pytest tests/test_torch_*.py -m gpu`")
 
 
 # Fast-tier selection: every module keeps at least one representative
