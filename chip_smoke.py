@@ -7,7 +7,9 @@ Phases (each fails the run with a nonzero exit):
      checkout's sources (nvcc, sm_90a);
   2. K1 (fused SATD mode search) against its plain PyTorch version on the
      card, n in {4, 8, 16, 32} x {luma, chroma}, at M = 1, 37, one tile
-     + 1 and the M of a 1080p frame: bit-identical; then, at the main
+     + 1 and every M the paths below launch it at: bit-identical (the
+     run records each launch's shape and fails on one not checked
+     here); then, at the main
      path's two shapes (1080p and 416x240 x 8), bit-identical again on
      the timed inputs, and kernel and plain-version times beside K1's
      bound (bytes, integer instructions);
@@ -17,9 +19,22 @@ Phases (each fails the run with a nonzero exit):
      4 times per batch; fps, per-stage ms, bytes, PSNR;
   5. the same at 1920x1080, 1 frame;
   6. one 416x240 frame encoded on the card and on the CPU port: the
-     streams must be byte-identical.
-Then one JSON line of the kernels, and the last line
-{"ok": true, "device": {...}}.
+     streams must be byte-identical;
+  7. the command line, python -m hevctpu_torch encode --search rd, in
+     process on a 416x240 x 4 YUV file with configs/encoder_intra_main.cfg
+     (one batch), then decode: the hash SEI verifies, the decoded YUV
+     equals --recon byte for byte, K1 launched 4 times; fps, stage ms,
+     bytes, PSNR-Y; frame 0 encoded with search="rd" on the card and on
+     the CPU port: streams byte-identical, recon equal to the CLI's;
+  8. the command line with R-λ rate control and per-CTU QP
+     (--target-kbps 1000, LCULevelRateControl : 1, CNN labels) on the
+     same file: the hash verifies, more than one CTU QP is coded; the
+     per-picture QPs and the achieved kbps;
+  9. search="rd" with a random per-CTU QP map at 128x192 x 2 on the card
+     and on the CPU port: the streams must be byte-identical.
+Then one JSON line of the paths, one of the kernels (K1's launches summed
+over the paths 4, 5, 7, 8 and 9's card encode), the card's name and power
+limit, and the last line {"ok": true, "device": {...}}.
 
 Run from the repository root: python3 chip_smoke.py
 It exits nonzero, printing no result, without CUDA or without the repo.
@@ -27,10 +42,14 @@ It exits nonzero, printing no result, without CUDA or without the repo.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -40,8 +59,38 @@ QP = 32
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_LANES = 132 * 64           # H100 SXM: 132 SMs x 64 INT32 lanes
 #                                  (Hopper white paper), at the SM clock
-M_1080P = {4: 130560, 8: 32640, 16: 8160, 32: 2040}   # 1920x1088 blocks
-M_416X240X8 = {4: 57344, 8: 14336, 16: 3584, 32: 896}  # 8 x 256x448
+
+
+def k1_rows(h: int, w: int, frames: int) -> dict:
+    """K1's M per n on an encode: one row per n x n block of the frames
+    padded to multiples of 64."""
+    hp, wp = -(-h // 64) * 64, -(-w // 64) * 64
+    return {n: frames * (hp // n) * (wp // n) for n in (4, 8, 16, 32)}
+
+
+M_1080P = k1_rows(1080, 1920, 1)
+M_416X240X8 = k1_rows(240, 416, 8)
+# The other grids the paths launch K1 at: the CLI's one batch of 4 frames
+# (phase 7), one picture per encode (phases 6-8: the rate controller
+# encodes one at a time) and the QP-map fixture (phase 9).
+M_PATHS = [M_1080P, M_416X240X8, k1_rows(240, 416, 4), k1_rows(240, 416, 1),
+           k1_rows(128, 192, 2)]
+# (n, M, luma) of every K1 launch after phase 2, to show each was held
+# against the plain version there.
+K1_LAUNCHED = set()
+
+
+def record_k1_shapes():
+    """Wrap K1's launch so the paths' shapes are recorded; the launch and
+    its counter are the wrapper's own."""
+    from hevctpu_torch.ops import satd_fused
+    launch = satd_fused._mode_satd_costs_cuda
+
+    def recording(refs, orig_flat, n, is_luma):
+        K1_LAUNCHED.add((n, int(refs.shape[0]), bool(is_luma)))
+        return launch(refs, orig_flat, n, is_luma)
+
+    satd_fused._mode_satd_costs_cuda = recording
 
 
 def log(*a):
@@ -118,9 +167,12 @@ def phase_k1(rng, dev, sm_hz):
     import torch
     from hevctpu_torch.ops import satd_fused
     max_err = 0
+    checked = set()
     for n in (4, 8, 16, 32):
         for is_luma in (True, False):
-            for m in (1, 37, satd_fused.tile_rows(n) + 1, M_1080P[n]):
+            for m in sorted({1, 37, satd_fused.tile_rows(n) + 1}
+                            | {ms[n] for ms in M_PATHS}):
+                checked.add((n, m, is_luma))
                 refs, orig = k1_inputs(rng, m, n, dev)
                 got = satd_fused.mode_satd_costs(refs, orig, n,
                                                  is_luma=is_luma)
@@ -175,7 +227,7 @@ def phase_k1(rng, dev, sm_hz):
     return dict(max_abs_err=max_err, ms=hd["ms"], plain_ms=hd["plain_ms"],
                 bound_ms=hd["bound_ms"],
                 bound_by=("operations" if hd["ops_ms"] >= hd["bytes_ms"]
-                          else "bytes"), shapes=shapes)
+                          else "bytes"), shapes=shapes, checked=checked)
 
 
 def load_cnn(device):
@@ -256,6 +308,143 @@ def cost_margin(y, u, v, dev):
     return res
 
 
+def run_cli(argv, label):
+    """The port's command line in this process (so K1's launch counter is
+    readable): (stdout text, wall seconds). Fails on a nonzero exit."""
+    from hevctpu_torch import cli
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"    | {line}")
+    if rc != 0:
+        fail(f"{label}: python -m hevctpu_torch {argv[0]} exited {rc}")
+    return text, wall
+
+
+def parse_encode_log(text: str) -> dict:
+    """Bytes, PSNR-Y, kbps, per-picture QPs and stage ms from the CLI's
+    encode report."""
+    stages = dict((k, float(v)) for k, v in re.findall(
+        r"(\w+) ([0-9.]+)", text.split("Stage ms:")[1].splitlines()[0]))
+    return dict(
+        bytes=int(re.search(r"Bytes written to file: (\d+)", text)[1]),
+        psnr_y=float(re.search(r"Y-PSNR +([0-9.]+)", text)[1]),
+        kbps=float(re.search(r"Bitrate +([0-9.]+) kbps", text)[1]),
+        qps=[int(q) for q in re.findall(r"I-SLICE, QP (\d+)", text)],
+        stage_ms=stages)
+
+
+def check_decode(bs: str, rec: str, out_dir: str, frames: int, label: str):
+    """Decode through the CLI and the Decoder: every hash SEI verifies and
+    the decoded YUV equals the encoder's recon byte for byte. Returns the
+    Decoder (its per-picture CTU QP maps)."""
+    from hevctpu_torch.codec import decoder
+    dec_path = os.path.join(out_dir, "dec.yuv")
+    run_cli(["decode", "-b", bs, "-o", dec_path], label)
+    with open(dec_path, "rb") as f, open(rec, "rb") as g:
+        if f.read() != g.read():
+            fail(f"{label}: the decoded YUV differs from --recon")
+    dec = decoder.Decoder()
+    with open(bs, "rb") as f:
+        got = dec.decode(f.read())
+    if len(got) != frames or len(dec.hashes_ok) != frames \
+            or not all(dec.hashes_ok):
+        fail(f"{label}: the hash SEI did not verify on every picture")
+    return dec
+
+
+def phase_cli(tmp: str, extra, frames: int, label: str, want_launches: int):
+    """One CLI encode of the 416x240 file + decode; returns its stats."""
+    from hevctpu_torch.ops import satd_fused
+    bs, rec = (os.path.join(tmp, f"{label}.{e}") for e in ("bin", "yuv"))
+    argv = ["encode", "-c", os.path.join(ROOT, "configs",
+                                         "encoder_intra_main.cfg"),
+            "-i", os.path.join(tmp, "in416.yuv"), "--width", "416",
+            "--height", "240", "-f", str(frames), "-b", bs, "--recon", rec,
+            *extra]
+    satd_fused.LAUNCHES = 0
+    text, wall = run_cli(argv, label)
+    launches = satd_fused.LAUNCHES
+    if launches != want_launches:
+        fail(f"{label}: K1 launched {launches} times, not {want_launches}")
+    dec = check_decode(bs, rec, tmp, frames, label)
+    stats = parse_encode_log(text)
+    stats.update(frames=frames, fps=frames / wall, wall_s=wall,
+                 k1_launches=launches)
+    return stats, dec
+
+
+def rd_frame_card_vs_cpu(tmp: str, dev) -> int:
+    """Frame 0 of the 416x240 file, search="rd", on the card and on the
+    CPU port: the streams must be byte-identical, and the card's recon
+    must equal frame 0 of the CLI's --recon. Returns the stream bytes."""
+    from hevctpu_torch.codec import decoder, headers
+    from hevctpu_torch.pipeline import yuv
+    from hevctpu_torch.pipeline.encoder import FrameEncoder
+    y, u, v = (p.astype(np.int32) for p in yuv.read_yuv420(
+        os.path.join(tmp, "in416.yuv"), 416, 240, 1))
+    cfg = headers.StreamConfig(width=416, height=240, qp=QP,
+                               hash_type="checksum")
+    outs, streams = [], []
+    for d in (dev, "cpu"):
+        outs.append(FrameEncoder(240, 416, QP, device=d,
+                                 search="rd").encode(y, u, v))
+        streams.append(decoder.encode_stream(cfg, [outs[-1]]))
+    if streams[0] != streams[1]:
+        diff = first_difference(outs[0], outs[1])
+        margin = cost_margin(y, u, v, dev)
+        fail(f"search=rd card and CPU streams differ: first field {diff};"
+             f" max |card - CPU| stage-1 RD cost per size {margin}")
+    cli_rec = yuv.read_yuv420(os.path.join(tmp, "cli_rd.yuv"), 416, 240, 1)
+    for k, plane in zip(("recon_y", "recon_u", "recon_v"), cli_rec):
+        if not np.array_equal(outs[0][k][0], plane[0]):
+            fail(f"search=rd: the card's {k} differs from frame 0 of the "
+                 f"CLI's --recon")
+    log(f"  frame 0, search=rd: card and CPU streams byte-identical "
+        f"({len(streams[0])} bytes), recon equal to the CLI's")
+    return len(streams[0])
+
+
+def phase_cuqp_card_vs_cpu(dev):
+    """search="rd" with a random per-CTU QP map, card vs CPU port (the
+    128x192 x 2 fixture of tests/test_cuqp.py)."""
+    from hevctpu_torch.codec import decoder, headers
+    from hevctpu_torch.ops import satd_fused
+    from hevctpu_torch.pipeline.encoder import FrameEncoder
+    h, w = 128, 192
+    rng = np.random.default_rng(7)
+    yy, xx = np.mgrid[0:h, 0:w]
+    y = np.stack([(128 + 70 * np.sin(yy / 6) * np.cos(xx / 9)
+                   + rng.normal(0, 8, (h, w))).clip(0, 255).astype(np.int32)
+                  for _ in range(2)])
+    u = np.stack([(128 + 40 * np.cos(yy[::2, ::2] / 9)).astype(np.int32)] * 2)
+    v = rng.integers(60, 200, (2, h // 2, w // 2)).astype(np.int32)
+    qmap = np.random.default_rng(11).integers(QP - 3, QP + 4, (2, 2, 3))
+    cfg = headers.StreamConfig(width=w, height=h, qp=QP, cu_qp_delta=True)
+    outs, streams, launches = [], [], 0
+    for d in (dev, "cpu"):
+        satd_fused.LAUNCHES = 0
+        outs.append(FrameEncoder(h, w, QP, device=d, search="rd").encode(
+            y, u, v, qp_map=qmap))
+        launches = launches or satd_fused.LAUNCHES
+        streams.append(decoder.encode_stream(cfg, [outs[-1]]))
+    if launches != 4:
+        fail(f"cu_qp_delta card encode: K1 launched {launches} times, not 4")
+    if streams[0] != streams[1]:
+        diff = first_difference(outs[0], outs[1])
+        margin = cost_margin(y[0], u[0], v[0], dev)
+        fail(f"cu_qp_delta card and CPU streams differ: first field {diff};"
+             f" max |card - CPU| stage-1 RD cost per size {margin}")
+    qps = sorted(set(np.asarray(outs[0]["qp_ctu"]).ravel().tolist()))
+    log(f"  streams byte-identical ({len(streams[0])} bytes), coded CTU QPs "
+        f"{qps}")
+    return dict(bytes=len(streams[0]), ctu_qps=qps, k1_launches=launches)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -293,6 +482,7 @@ def main() -> int:
     log("phase 2: K1 against its plain version on the card "
         "(tolerance 0: bit-identical)")
     k1 = phase_k1(rng, dev, sm_hz)
+    record_k1_shapes()
 
     log("phase 3: ConvNet2 labels, card vs CPU (416x240)")
     from hevctpu_torch.models import convnet2
@@ -338,6 +528,47 @@ def main() -> int:
              f"|card - CPU| stage-1 RD cost per size {margin}")
     log(f"  streams byte-identical ({len(streams[0])} bytes)")
 
+    with tempfile.TemporaryDirectory() as tmp:
+        from hevctpu_torch.pipeline import yuv
+        yuv.write_yuv420(os.path.join(tmp, "in416.yuv"),
+                         *clips.clip_sine(4, 240, 416, seed=0))
+        log("phase 7: CLI encode --search rd, 416x240 x 4 frames (one "
+            "batch), then decode")
+        cli_rd, _ = phase_cli(tmp, ["--search", "rd"], 4, "cli_rd", 4)
+        launches += cli_rd["k1_launches"]
+        log(f"  cli_rd: {json.dumps(cli_rd)}")
+        cli_rd["frame0_card_vs_cpu_bytes"] = rd_frame_card_vs_cpu(tmp, dev)
+
+        log("phase 8: CLI encode, R-λ rate control with per-CTU QP "
+            "(--target-kbps 1000, LCULevelRateControl), 416x240 x 4")
+        lcu_cfg = os.path.join(tmp, "lcu_rc.cfg")
+        with open(lcu_cfg, "w") as f:
+            f.write("LCULevelRateControl : 1\n")
+        cli_rc, dec = phase_cli(
+            tmp, ["-c", lcu_cfg, "--target-kbps", "1000", "--search", "cnn",
+                  "--model", os.path.join(ROOT, "CKPT_DOMAIN.npz")], 4,
+            "cli_rc", 16)
+        launches += cli_rc["k1_launches"]
+        ctu_qps = sorted(set(np.concatenate(
+            [m.ravel() for m in dec.qp_maps]).tolist()))
+        if len(ctu_qps) < 2:
+            fail(f"cli_rc: the stream codes one CTU QP only ({ctu_qps})")
+        cli_rc["ctu_qps"] = ctu_qps
+        log(f"  cli_rc: per-picture QPs {cli_rc['qps']}, coded CTU QPs "
+            f"{ctu_qps}, achieved {cli_rc['kbps']} kbps (target 1000)")
+
+    log("phase 9: search=rd with a random per-CTU QP map, 128x192 x 2, "
+        "card vs CPU port")
+    cuqp = phase_cuqp_card_vs_cpu(dev)
+    launches += cuqp["k1_launches"]
+
+    unchecked = sorted(K1_LAUNCHED - k1["checked"])
+    if unchecked:
+        fail(f"K1 launched at (n, M, luma) {unchecked}, never held against "
+             f"its plain version in phase 2")
+    log(f"  K1 launched at {len(K1_LAUNCHED)} (n, M, luma) shapes, each "
+        f"bit-identical to the plain version in phase 2")
+
     kernels = [dict(name="satd_mode_costs", route="cuda",
                     source="hevctpu_torch/csrc/satd_fused.cu",
                     replaces="hevctpu/ops/satd_fused.py:119",
@@ -346,7 +577,10 @@ def main() -> int:
                     bound_ms=k1["bound_ms"], bound_by=k1["bound_by"],
                     library_ms=None)]
     log(f"  total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"paths": {"416x240": sd, "1920x1080": hd},
+    print(json.dumps({"paths": {"416x240": sd, "1920x1080": hd,
+                                "cli_rd_416x240x4": cli_rd,
+                                "cli_rc_416x240x4": cli_rc,
+                                "cuqp_128x192x2": cuqp},
                       "k1_build_s": build_s, "k1": k1["shapes"],
                       "sm_clock_hz": sm_hz}))
     print(json.dumps({"kernels": kernels}))

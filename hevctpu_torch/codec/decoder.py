@@ -30,6 +30,7 @@ class Decoder:
         self.frames = []  # (recon_y, recon_u, recon_v)
         self.hashes_ok = []  # one bool per decoded-picture-hash SEI
         self.prefix_seis = []  # (payload_type, payload) of prefix SEIs
+        self.qp_maps = []  # per picture: the [rc, cc] CTU QPs it codes
 
     def decode(self, stream: bytes):
         """Decode; raises headers.DecodeError (with a message naming the
@@ -102,6 +103,7 @@ class Decoder:
         sd = SliceDecoder(cfg, rbsp, sh["data_offset"],
                           entry_points=sh.get("entry_points")).decode()
 
+        self.qp_maps.append(np.array(sd.qp_ctu))
         hp, wp = sd.rc * 64, sd.cc * 64
         planes = {0: np.zeros((hp, wp), np.int32),
                   1: np.zeros((hp // 2, wp // 2), np.int32),

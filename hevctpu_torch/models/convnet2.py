@@ -6,7 +6,8 @@ to 4 depth labels (one per 16x16 quarter); batch-norm is already folded
 into the convolutions in the parameter files. The public functions keep
 the JAX package's layouts (NHWC crops, [..., 16] logits); the module
 converts to NCHW inside. Weights come across from the JAX params layout
-with params_from_jax.
+with params_from_jax; the reference's torch checkpoint (a state dict with
+batch-norm layers) comes to that layout with load_torch_params.
 """
 
 from __future__ import annotations
@@ -15,6 +16,58 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+_BN_EPS = 1e-5
+
+
+def load_torch_params(pt_path: str) -> dict:
+    """Load the reference checkpoint (a torch state dict) and fold its
+    batch norms into the conv weights. Returns the JAX-layout params dict
+    of numpy arrays that params_from_jax and load_model take: conv
+    kernels HWIO, linear weights [in, out], fc1's input reordered from
+    torch's CHW flatten to HWC."""
+    sd = torch.load(pt_path, map_location="cpu")
+    sd = {k: v.numpy() for k, v in sd.items()}
+    params = {}
+
+    def fold_conv(prefix):
+        w = sd[f"{prefix}.0.weight"]            # OIHW
+        b = sd[f"{prefix}.0.bias"]
+        gamma = sd[f"{prefix}.1.weight"]
+        beta = sd[f"{prefix}.1.bias"]
+        mean = sd[f"{prefix}.1.running_mean"]
+        var = sd[f"{prefix}.1.running_var"]
+        scale = gamma / np.sqrt(var + _BN_EPS)
+        w = w * scale[:, None, None, None]
+        b = (b - mean) * scale + beta
+        params[prefix] = {
+            "w": np.transpose(w, (2, 3, 1, 0)).astype(np.float32),  # HWIO
+            "b": b.astype(np.float32),
+        }
+
+    for p in ("conv1", "conv64", "conv2", "conv3"):
+        fold_conv(p)
+
+    def linear(prefix, torch_key):
+        w = sd[f"{torch_key}.weight"]  # [out, in]
+        b = sd[f"{torch_key}.bias"]
+        params[prefix] = {"w": w.T.astype(np.float32),
+                          "b": b.astype(np.float32)}
+
+    linear("fc1", "fc1.0")
+    linear("fc2", "fc2.0")
+    linear("fc3", "fc3")
+
+    # fc1's input from torch's CHW (128, 4, 4) flatten to the HWC one
+    w = params["fc1"]["w"]  # [2048, 256] indexed by c*16 + h*4 + w
+    idx = np.arange(2048)
+    c, rem = idx // 16, idx % 16
+    h, wcol = rem // 4, rem % 4
+    w_new = np.zeros_like(w)
+    w_new[h * (4 * 128) + wcol * 128 + c] = w
+    params["fc1"]["w"] = w_new
+    return params
 
 
 class ConvNet2(nn.Module):

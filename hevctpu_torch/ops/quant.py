@@ -1,5 +1,10 @@
-"""Scalar quantization / dequantization + vectorized RDOQ and SBH (port of
-hevctpu/ops/quant.py, scalar-QP branch; per-TU QP arrays are not ported).
+"""Quantization / dequantization + vectorized RDOQ and SBH (port of
+hevctpu/ops/quant.py).
+
+The QP is a static int, or (cu_qp_delta operating points) an integer
+tensor over the leading TU dims: per-CTU QP maps gather to per-TU values,
+and the scale and shifts become elementwise (TComTrQuant setQpParam).
+All of that is integer arithmetic, bit-exact on every device.
 
 Forward quant is the reference's hard-decision quantizer; dequantization
 is the normative H.265 8.6.3 formula (flat scaling). quantize_rdoq is the
@@ -30,38 +35,58 @@ def transform_shift(log2_size: int, bit_depth: int = 8) -> int:
     return rom.MAX_TR_DYNAMIC_RANGE - bit_depth - log2_size
 
 
-def _check_qp(qp) -> int:
-    if not isinstance(qp, (int, np.integer)):
-        raise NotImplementedError(
-            "per-TU QP arrays (cu_qp_delta) are not ported; pass a static "
-            "int QP")
-    return int(qp)
+def is_static_qp(qp) -> bool:
+    """True for a static int QP, False for a per-TU QP tensor."""
+    return isinstance(qp, (int, np.integer))
 
 
-def quantize(coef: torch.Tensor, log2_size: int, qp: int, *,
+@functools.lru_cache(maxsize=None)
+def _scale_tables(device: torch.device):
+    return tuple(torch.as_tensor(np.asarray(t, np.int32), device=device)
+                 for t in (rom.QUANT_SCALES, rom.INV_QUANT_SCALES))
+
+
+def _qp_split(qp, ref: torch.Tensor, inverse: bool = False):
+    """(QP // 6, (inverse) quant scale of QP % 6): ints for a static QP;
+    for a per-TU QP tensor, int32 tensors broadcast against the
+    [..., N, N]-like ref."""
+    if is_static_qp(qp):
+        table = rom.INV_QUANT_SCALES if inverse else rom.QUANT_SCALES
+        return int(qp) // 6, int(table[int(qp) % 6])
+    q = qp.to(torch.int32)
+    q = q.reshape(q.shape + (1,) * (ref.dim() - q.dim()))
+    return q // 6, _scale_tables(ref.device)[int(inverse)][(q % 6).long()]
+
+
+def quantize(coef: torch.Tensor, log2_size: int, qp, *,
              bit_depth: int = 8) -> torch.Tensor:
     """Hard-decision quantization of [..., N, N] coefficients -> levels
-    (intra rounding offset 171/512)."""
-    qp = _check_qp(qp)
-    tshift = transform_shift(log2_size, bit_depth)
-    qbits = rom.QUANT_SHIFT + qp // 6 + tshift
-    scale = int(rom.QUANT_SCALES[qp % 6])
-    add = 171 << (qbits - 9)
-    level = torch.clamp((coef.abs() * scale + add) >> qbits, 0, 32767)
+    (intra rounding offset 171/512); qp static or per TU."""
+    qdiv, scale = _qp_split(qp, coef)
+    qbits = rom.QUANT_SHIFT + qdiv + transform_shift(log2_size, bit_depth)
+    level = torch.clamp((coef.abs() * scale + (171 << (qbits - 9)))
+                        >> qbits, 0, 32767)
     return torch.where(coef < 0, -level, level)
 
 
-def dequantize(level: torch.Tensor, log2_size: int, qp: int, *,
+def dequantize(level: torch.Tensor, log2_size: int, qp, *,
                bit_depth: int = 8) -> torch.Tensor:
-    """Normative dequant (H.265 8.6.3, m=16): levels -> coefficients."""
-    qp = _check_qp(qp)
-    bd_shift = bit_depth + log2_size - 5
-    scale = int(rom.INV_QUANT_SCALES[qp % 6]) * 16
-    e = qp // 6 - bd_shift
-    if e < 0:
-        d = (level * scale + (1 << (-e - 1))) >> (-e)
+    """Normative dequant (H.265 8.6.3, m=16): levels -> coefficients. A
+    per-TU qp evaluates both shift directions of the formula elementwise,
+    with clamped shift amounts."""
+    qdiv, scale = _qp_split(qp, level, inverse=True)
+    scale = scale * 16
+    e = qdiv - (bit_depth + log2_size - 5)
+    if is_static_qp(qp):
+        if e < 0:
+            d = (level * scale + (1 << (-e - 1))) >> (-e)
+        else:
+            d = (level * scale) << e
     else:
-        d = (level * scale) << e
+        neg = torch.clamp_min(-e, 0)
+        rnd = torch.where(e < 0, 1 << torch.clamp_min(neg - 1, 0), 0)
+        d = torch.where(e < 0, (level * scale + rnd) >> neg,
+                        (level * scale) << torch.clamp_min(e, 0))
     return torch.clamp(d, -32768, 32767)
 
 
@@ -125,18 +150,23 @@ def _pool_cg(x: torch.Tensor) -> torch.Tensor:
     return seqsum(x.reshape(*x.shape[:-2], n // 4, 4, n // 4, 4), (-3, -1))
 
 
-def quantize_rdoq(coef: torch.Tensor, log2_size: int, qp: int, lam: float,
-                  *, bit_depth: int = 8, scan: torch.Tensor | None = None,
+def quantize_rdoq(coef: torch.Tensor, log2_size: int, qp, lam, *,
+                  bit_depth: int = 8, scan: torch.Tensor | None = None,
                   rate_qp: int | None = None) -> torch.Tensor:
     """RD-optimized quantization of [..., N, N] coefficients -> levels.
     scan [...] int32 (0 diag, 1 hor, 2 ver per TU) selects the coefficient
-    scan (mode-dependent for N <= 8); None = diagonal."""
-    qp = _check_qp(qp)
-    rate_qp = qp if rate_qp is None else rate_qp
+    scan (mode-dependent for N <= 8); None = diagonal.
+
+    qp and lam may be per-TU tensors [...] (cu_qp_delta); the rate tables
+    then stay at the static slice QP rate_qp, since context
+    initialization depends on SliceQpY only (9.3.2.2)."""
+    if rate_qp is None:
+        if not is_static_qp(qp):
+            raise ValueError("a per-TU qp needs an explicit static rate_qp")
+        rate_qp = int(qp)
     absc = coef.abs()
-    tshift = transform_shift(log2_size, bit_depth)
-    qbits = rom.QUANT_SHIFT + qp // 6 + tshift
-    scale = int(rom.QUANT_SCALES[qp % 6])
+    qdiv, scale = _qp_split(qp, coef)
+    qbits = rom.QUANT_SHIFT + qdiv + transform_shift(log2_size, bit_depth)
     l1 = torch.clamp((absc * scale + (1 << (qbits - 1))) >> qbits, 0, 32767)
     l0 = torch.clamp_min(l1 - 1, 0)
 
@@ -144,12 +174,16 @@ def quantize_rdoq(coef: torch.Tensor, log2_size: int, qp: int, lam: float,
     k = rate._repeat4(rate.rice_param(rate.cg_sums(l1)))
     dscale = 4.0 ** (log2_size - 7)
     lam_u = lam / rate.BITS_ONE
+    if isinstance(lam, torch.Tensor):   # per-TU λ [...]: explicit axes
+        lam2, lam1 = lam_u[..., None, None], lam_u[..., None]
+    else:
+        lam2 = lam1 = lam_u
     wq = rate.bin_weights(rate_qp)
 
     def cost(lvl):
         deq = dequantize(lvl, log2_size, qp, bit_depth=bit_depth)
         err = (absc - deq).to(torch.float32)
-        return err * err * dscale + lam_u * rate.level_bits(
+        return err * err * dscale + lam2 * rate.level_bits(
             lvl, k, wq).to(torch.float32)
 
     c1, c0, cz = cost(l1), cost(l0), cost(torch.zeros_like(l1))
@@ -160,7 +194,7 @@ def quantize_rdoq(coef: torch.Tensor, log2_size: int, qp: int, lam: float,
 
     # CG zeroing: the group's coded cost (+ csbf bin) against all-zero.
     if n > 4:
-        coded_cost = _pool_cg(csel) + lam_u * wq["csbf"]
+        coded_cost = _pool_cg(csel) + lam2 * wq["csbf"]
         zero_cost = _pool_cg(cz)
         kill = rate._repeat4(zero_cost < coded_cost)
         lvl = torch.where(kill, 0, lvl)
@@ -182,7 +216,7 @@ def quantize_rdoq(coef: torch.Tensor, log2_size: int, qp: int, lam: float,
         csum = c_scan.to(torch.float64).cumsum(-1).to(torch.float32)
         zsum = z_scan.to(torch.float64).cumsum(-1).to(torch.float32)
         tail_zero = zsum[..., -1:] - zsum
-        j_q = csum + tail_zero + lam_u * (lastb[s] + float(wq["cbf1"]))
+        j_q = csum + tail_zero + lam1 * (lastb[s] + float(wq["cbf1"]))
         j_q = torch.where(l_scan != 0, j_q, torch.inf)
         j_best, q_best = torch.min(j_q, dim=-1)
         j_zero = zsum[..., -1] + lam_u * float(wq["cbf0"])
@@ -240,12 +274,13 @@ def scan_sel(mode: torch.Tensor, log2_size: int,
 
 
 def sign_bit_hide(lvl: torch.Tensor, coef: torch.Tensor, log2_size: int,
-                  qp: int, scan: torch.Tensor, *,
+                  qp, scan: torch.Tensor, *,
                   bit_depth: int = 8) -> torch.Tensor:
     """Encoder-side sign-data hiding (TComTrQuant::signBitHidingHDQ,
     vectorized over TUs): for each 4x4 group with lastNZ - firstNZ > 3
     whose parity disagrees with the first coefficient's sign, nudge the
-    ±1-cheapest coefficient. lvl/coef [..., N, N]; scan [...] per TU."""
+    ±1-cheapest coefficient. lvl/coef [..., N, N]; scan [...] and a
+    per-TU qp tensor [...] index the TUs."""
     n = 1 << log2_size
     nc = n // 4
     pos = _pos_in_cg_t(lvl.device)[scan.long()]            # [..., 4, 4]

@@ -20,9 +20,10 @@ and the geometry, so they are planned on the host once per batch
 its diagonal is skipped (a masked step writes nothing). The extended
 recon buffers are updated in place.
 
-Options outside this slice (search="rd", rate_model="ctx", qp_map,
-two_pass, lite transfer, and turning any coding tool off) raise
-NotImplementedError.
+The full-RD quadtree search (search="rd"), per-CTU QP maps (qp_map, for
+LCU-level rate control) and the coding-tool switches follow the JAX
+package. Options outside the port so far (rate_model="ctx", two_pass,
+lite transfer) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -308,13 +309,15 @@ def _dense_chroma_decision(up, vp, geom: Geometry, qp: int, qp_c: int,
     """Per-CU chroma mode selection: joint Cb+Cr RD of the 4 list modes
     (with the ==luma -> 34 substitution) and DM, keyed by luma CU size n
     in (64, 32, 16, 8). Returns (csel {n: [B,R,C] int32, 0..3 list index
-    or 4 = DM}, cmode {n: [B,R,C] int32 resolved chroma mode})."""
+    or 4 = DM}, cmode {n: [B,R,C] int32 resolved chroma mode}, ccost {n:
+    [B,R,C] float32 w_c-weighted joint chroma RD at the choice})."""
     lam = rate.lambda_rd(qp)
-    lam_c = lam / rate.chroma_dist_weight(qp, qp_c)
+    w_c = rate.chroma_dist_weight(qp, qp_c)
+    lam_c = lam / w_c
     sel_bits = torch.as_tensor(_CHROMA_SEL_BITS, dtype=torch.float32,
                                device=up.device) * lam_c
     chroma_list = torch.as_tensor(_CHROMA_LIST, device=up.device)
-    csel, cmode = {}, {}
+    csel, cmode, ccost = {}, {}, {}
     for n in (64, 32, 16, 8):
         m = n // 2
         lm = luma_modes[n]
@@ -326,10 +329,46 @@ def _dense_chroma_decision(up, vp, geom: Geometry, qp: int, qp_c: int,
         rd_v = _dense_rd_candidates(vp, geom, m, cand, qp_c, lam_c,
                                     is_luma=False, scale=2)
         jc = rd_u + rd_v + sel_bits
-        best = jc.argmin(dim=-1)
+        jmin, best = torch.min(jc, dim=-1)
         csel[n] = best.to(torch.int32)
         cmode[n] = torch.gather(cand, -1, best[..., None])[..., 0]
-    return csel, cmode
+        ccost[n] = w_c * jmin
+    return csel, cmode, ccost
+
+
+def _rd_split_labels(costs: dict, qp: int) -> torch.Tensor:
+    """Bottom-up RD quadtree decision (the "global" rate model's fitted
+    overheads) -> per-CTU 16-label vectors: the merged cost of the four
+    children (+ the split_cu_flag bin) against the parent CU, pooled 2x2
+    at each level. costs {n: [B, R, C]} for n in (64, 32, 16, 8). Returns
+    labels [B, rc*cc, 16] int32 in the CNN-label layout."""
+    lam = rate.lambda_rd(qp)
+    oh_cu = lam * 3.2    # per-CU fixed bins: chroma mode + cbf flags
+    oh_self, oh_split = 0.0, lam * 0.8  # split_cu_flag bin
+
+    c8 = costs[8] + oh_cu                    # min CU: no split flag
+    c16_split = _pool2(c8) + oh_split
+    c16_self = costs[16] + oh_cu + oh_self
+    take16 = c16_self <= c16_split
+    c16 = torch.minimum(c16_self, c16_split)
+
+    c32_split = _pool2(c16) + oh_split
+    c32_self = costs[32] + oh_cu + oh_self
+    take32 = c32_self <= c32_split
+    c32 = torch.minimum(c32_self, c32_split)
+
+    c64_split = _pool2(c32) + oh_split
+    c64_self = costs[64] + 4 * oh_cu + oh_self         # codes as 4 TU32s
+    take64 = c64_self <= c64_split
+
+    # labels per 16x16 block: 0/1/2/3 by the nesting decisions
+    lab = torch.where(_rep2(take64, 4), 0,
+                      torch.where(_rep2(take32, 2), 1,
+                                  torch.where(take16, 2, 3)))
+    b, r16, c16n = lab.shape
+    rc, cc = r16 // 4, c16n // 4
+    lab = lab.reshape(b, rc, 4, cc, 4).permute(0, 1, 3, 2, 4)
+    return lab.reshape(b, rc * cc, 16).to(torch.int32)
 
 
 def _tu_tree_decision(plane: torch.Tensor, geom: Geometry, qp: int,
@@ -522,17 +561,26 @@ def _stage2_plan(geom: Geometry, tz: np.ndarray, c8: np.ndarray,
     return plan
 
 
+def _lam_on(lam) -> bool:
+    """A λ of scalar 0.0 switches its tool off; a per-row tensor is on."""
+    return isinstance(lam, torch.Tensor) or lam != 0.0
+
+
 def _tu_step(ext, levels, orig, mode, fire, oy: int, ox: int, n: int,
-             qp: int, av, *, is_luma: bool, rdoq_lam: float, dst: bool,
-             ts_lam: float, rate_qp: int):
+             qp, av, *, is_luma: bool, rdoq_lam, dst: bool, ts_lam,
+             rate_qp: int, sbh: bool):
     """One masked TU at CTU-local origin (oy, ox) for every row:
-    predict -> transform -> RDOQ (+TS trial at 4x4) -> SBH -> dequant ->
-    inverse -> recon. Updates ext and levels in place where `fire`.
+    predict -> transform -> RDOQ, or hard-decision quant when rdoq_lam is
+    0.0 (+ the TS trial at 4x4 unless ts_lam is 0.0) -> SBH if sbh ->
+    dequant -> inverse -> recon. Updates ext and levels in place where
+    `fire`.
 
     ext [R, span+1+span//2, 2span+2] is the extended CTU-local recon
     (row 0 = above strip, column 0 = left strip, (1+y, 1+x) = pixel
     (y, x); the extra rows/cols are never-available filler). av [R, 4n+1]
-    is the availability of the boundary samples. Returns (cbf & fire,
+    is the availability of the boundary samples. qp, rdoq_lam and ts_lam
+    are scalars, or per-row [R] tensors under a per-CTU QP map (the rate
+    tables then stay at the static slice QP rate_qp). Returns (cbf & fire,
     transform-skip & cbf & fire)."""
     assert (0 <= oy and oy + 2 * n + 1 <= ext.shape[1]
             and 0 <= ox and ox + 2 * n + 1 <= ext.shape[2])
@@ -548,17 +596,22 @@ def _tu_step(ext, levels, orig, mode, fire, oy: int, ox: int, n: int,
     log2 = int(np.log2(n))
     coef = transforms.forward_transform(res, log2, dst=dst)
     scan_tu = quant.scan_sel(mode, log2, is_luma)
-    lvl = quant.quantize_rdoq(coef, log2, qp, rdoq_lam, scan=scan_tu,
-                              rate_qp=rate_qp)
+
+    def quantize(cf):
+        if _lam_on(rdoq_lam):
+            return quant.quantize_rdoq(cf, log2, qp, rdoq_lam, scan=scan_tu,
+                                       rate_qp=rate_qp)
+        return quant.quantize(cf, log2, qp)
+
+    lvl = quantize(coef)
     use_ts = None
-    if n == 4:
+    if n == 4 and _lam_on(ts_lam):
         # transform-skip trial: the scaled residual quantizes in the same
         # dynamic range as the transform, so the two candidates compare
         # directly in the coefficient domain.
         shift = rom.MAX_TR_DYNAMIC_RANGE - 8 - log2
         coef_s = res * (1 << shift)
-        lvl_s = quant.quantize_rdoq(coef_s, log2, qp, rdoq_lam, scan=scan_tu,
-                                    rate_qp=rate_qp)
+        lvl_s = quantize(coef_s)
         dscale = 4.0 ** (log2 - 7)
         lam_u = ts_lam / rate.BITS_ONE
 
@@ -570,7 +623,8 @@ def _tu_step(ext, levels, orig, mode, fire, oy: int, ox: int, n: int,
         use_ts = j_cost(lvl_s, coef_s) < j_cost(lvl, coef)
         lvl = torch.where(use_ts[:, None, None], lvl_s, lvl)
         coef = torch.where(use_ts[:, None, None], coef_s, coef)
-    lvl = quant.sign_bit_hide(lvl, coef, log2, qp, scan_tu)
+    if sbh:
+        lvl = quant.sign_bit_hide(lvl, coef, log2, qp, scan_tu)
     cbf = (lvl != 0).flatten(1).any(dim=1)
     deq = quant.dequantize(lvl, log2, qp)
     rinv = transforms.inverse_transform(deq, log2, dst=dst)
@@ -588,6 +642,21 @@ def _tu_step(ext, levels, orig, mode, fire, oy: int, ox: int, n: int,
     cbf = cbf & fire
     return cbf, (use_ts & cbf if use_ts is not None
                  else torch.zeros_like(cbf))
+
+
+# XLA lowers jnp.exp2(Δ/3) in float32 to exp(Δ·c), its ln 2 constant and
+# the division folded into one float32 c = ln2/3.
+_LN2_OVER_3 = float(np.float32(np.float32(np.log(2.0)) / np.float32(3.0)))
+
+
+def lambda_scale(dqp: torch.Tensor) -> torch.Tensor:
+    """Per-CTU λ scale 2^(Δ/3) for integer QP deltas Δ, float32, as the
+    JAX encoder lowers it: Δ·c rounded to float32, then its exp in
+    float64 rounded once, so every device gets the same value. Equal to
+    XLA's bit for bit for |Δ| ≤ 34; at Δ in {-50, -41, -35, 38} XLA's
+    float32 exp is 1 ULP off the correctly rounded value taken here."""
+    x = dqp.to(torch.float32) * _LN2_OVER_3
+    return torch.exp(x.to(torch.float64)).to(torch.float32)
 
 
 def _make_ext(top: torch.Tensor, left: torch.Tensor,
@@ -652,43 +721,57 @@ _OUT_CAST = {"recon_y": torch.uint8, "recon_u": torch.uint8,
              "csel8": torch.int8, "tusz8": torch.int8,
              "sao_type": torch.int8, "sao_eo": torch.int8,
              "sao_bp": torch.int8, "sao_off": torch.int8,
-             "sao_merge": torch.int8}
+             "sao_merge": torch.int8, "qp_ctu": torch.int8}
 
-# The slice's settings; any other value of these is not ported yet.
-_PORTED = dict(deblock=True, search="cnn", rdoq=True, sao=True, sbh=True,
-               nxn=True, tu_split=True, ts=True, two_pass=False,
-               rate_model="global")
+# Options outside the port so far; any other value of these raises.
+_UNPORTED = dict(two_pass=False, rate_model="global")
 
 
 class FrameEncoder:
     """Encodes batches of frames of one geometry at one QP on one device.
 
-    The CU quadtree is the CNN's pruned prediction (search="cnn"), the
-    reference pipeline's gate semantics; labels come from the caller
-    (encode) or from ConvNet2 on the same device (encode_fused)."""
+    search selects the partition source:
+      * "cnn" — the CU quadtree is the CNN's pruned prediction, the
+        reference pipeline's gate semantics; labels come from the caller
+        (encode) or from ConvNet2 on the same device (encode_fused).
+      * "rd"  — full RD quadtree search: per-depth dense RD costs compared
+        bottom-up (_rd_split_labels); labels are ignored.
+    The coding-tool switches (rdoq, sbh, ts, nxn, tu_split, deblock, sao)
+    turn their tool off when False, as in the JAX package."""
 
-    def __init__(self, h: int, w: int, qp: int, *, device=None, **options):
+    def __init__(self, h: int, w: int, qp: int, *, device=None,
+                 deblock: bool = True, search: str = "cnn",
+                 rdoq: bool = True, sao: bool = True, sbh: bool = True,
+                 nxn: bool = True, tu_split: bool = True, ts: bool = True,
+                 **options):
         if h % 8 or w % 8:
             raise ValueError("HEVC requires dims % minCU == 0")
-        unknown = set(options) - set(_PORTED)
+        if search not in ("cnn", "rd"):
+            raise ValueError(f"search must be cnn|rd, got {search!r}")
+        unknown = set(options) - set(_UNPORTED)
         if unknown:
             raise TypeError(f"unknown FrameEncoder options {sorted(unknown)}")
-        off = {k: v for k, v in options.items() if v != _PORTED[k]}
+        off = {k: v for k, v in options.items() if v != _UNPORTED[k]}
         if off:
             raise NotImplementedError(
                 f"FrameEncoder options {off} are not ported; the port runs "
-                f"the default slice {_PORTED}")
+                f"{_UNPORTED}")
         self.device = get_device(device)
         self.geom = Geometry(h, w)
         self.qp = int(qp)
         self.qp_c = rom.chroma_qp_from_luma(self.qp)
-        self.sbh = True
+        self.search = search
+        self.deblock, self.sao, self.sbh = deblock, sao, sbh
+        self.nxn, self.tu_split, self.ts = nxn, tu_split, ts
         lam = rate.lambda_rd(self.qp)
         w_c = rate.chroma_dist_weight(self.qp, self.qp_c)
-        # RDOQ and the TS trial use λ; chroma distortion is weighted by
-        # w_c in the RD cost, so chroma's effective λ is λ / w_c.
-        self.rdoq_lam = self.ts_lam = lam
-        self.rdoq_lam_c = self.ts_lam_c = lam / w_c
+        # RDOQ and the TS trial use λ (0.0 switches the tool off); chroma
+        # distortion is weighted by w_c in the RD cost, so chroma's
+        # effective λ is λ / w_c.
+        self.rdoq_lam = lam if rdoq else 0.0
+        self.ts_lam = lam if ts else 0.0
+        self.rdoq_lam_c = self.rdoq_lam / w_c
+        self.ts_lam_c = self.ts_lam / w_c
         self._clock = _StageClock(self.device)
 
     # -- public API --------------------------------------------------------
@@ -699,17 +782,26 @@ class FrameEncoder:
 
     def encode(self, y, u, v, labels=None, qp_map=None) -> dict:
         """y [B,H,W], u/v [B,H/2,W/2] uint8-valued; labels [B, rc*cc, 16]
-        (required: search="cnn"). Returns a dict of numpy arrays."""
-        if qp_map is not None:
-            raise NotImplementedError("per-CTU qp_map is not ported")
+        (required for search="cnn"). qp_map [B, rc, cc] optional per-CTU
+        absolute QPs (cu_qp_delta / LCU-level rate control): quantization,
+        λ and deblocking follow the map, and the output carries the
+        effective map the entropy coder signals as "qp_ctu". Returns a
+        dict of numpy arrays."""
         if labels is None:
-            raise ValueError("search='cnn' needs labels")
+            if self.search != "rd":
+                raise ValueError("search='cnn' needs labels")
+            labels = np.zeros((np.shape(y)[0], self.geom.rc * self.geom.cc,
+                               16), np.int8)
         self._clock = _StageClock(self.device)
         self._clock.mark("start")
         y, u, v = self._to_device(y, u, v)
         lab = torch.as_tensor(np.asarray(labels, np.int8)).to(self.device)
+        if qp_map is not None:
+            qp_map = torch.as_tensor(np.asarray(qp_map, np.uint8)).to(
+                self.device).to(torch.int32)
         self._clock.mark("upload")
-        return self.collect(self._encode_impl(y, u, v, lab.to(torch.int32)))
+        return self.collect(self._encode_impl(y, u, v, lab.to(torch.int32),
+                                              qp_map))
 
     def encode_fused(self, cnn, y, u, v, *, lite: bool = False) -> dict:
         """ConvNet2 depth labels + encode on the encoder's device; cnn is a
@@ -759,7 +851,7 @@ class FrameEncoder:
 
     # -- implementation ----------------------------------------------------
 
-    def _encode_impl(self, y, u, v, labels):
+    def _encode_impl(self, y, u, v, labels, qp_map=None):
         g = self.geom
         yp = pad_plane(y.to(torch.int32), g.hp, g.wp)
         up = pad_plane(u.to(torch.int32), g.hp // 2, g.wp // 2)
@@ -770,18 +862,46 @@ class FrameEncoder:
                                 dec["cmode_slot"],
                                 to_blocked(dec["tusz_frame"], 8),
                                 dec["coded8"],
-                                to_blocked(dec["mode4_frame"], 16))
+                                to_blocked(dec["mode4_frame"], 16), qp_map)
         self._clock.mark("stage2")
+        if qp_map is not None:
+            out["qp_ctu"] = self._effective_qp_map(out, qp_map)
         out["depth8"] = from_blocked(dec["depth8"])
         out["coded8"] = from_blocked(dec["coded8"])
         out["mode8"] = dec["mode8_frame"]
         out["csel8"] = dec["csel8_frame"]
         out["nxn8"] = dec["nxn8_frame"]
         out["mode4"] = dec["mode4_frame"]
-        out["tusz8"] = dec["tusz_frame"]
+        if self.tu_split:
+            out["tusz8"] = dec["tusz_frame"]
+        if not self.ts:
+            for k in ("ts4_y", "ts8_u", "ts8_v"):
+                del out[k]
         out = self._loop_filters_and_cast(yp, up, vp, out, dec["tusz_frame"])
         self._clock.mark("filters")
         return out
+
+    def _effective_qp_map(self, out: dict, qp_map: torch.Tensor):
+        """The wire QP map [B, rc, cc]: a CTU with no coded cbf signals no
+        delta, so its QP is the predicted (previous effective) one, "the
+        last CTU with residual wins" in raster order (8.6.1 qPY_PREV with
+        QG == CTB); the slice QP before the first such CTU. Deblocking and
+        the entropy coder see this map, not the desired one."""
+        g = self.geom
+
+        def pool_ctu(x, s):
+            return x.reshape(x.shape[0], g.rc, s, g.cc, s).any(dim=4).any(
+                dim=2)
+
+        any_c = (pool_ctu(out["cbf_y"], 8) | pool_ctu(out["cbf_u"], 8)
+                 | pool_ctu(out["cbf_v"], 8) | pool_ctu(out["cbf4_y"], 16))
+        b = qp_map.shape[0]
+        des = qp_map.reshape(b, -1)
+        pos = torch.arange(des.shape[1], device=des.device).expand_as(des)
+        last = torch.cummax(torch.where(any_c.reshape(b, -1), pos, -1),
+                            dim=1).values
+        vals = torch.gather(des, 1, torch.clamp_min(last, 0))
+        return torch.where(last >= 0, vals, self.qp).reshape(qp_map.shape)
 
     def _decide(self, yp, up, vp, labels):
         """Stage 1: all mode/partition/TU decisions for the batch."""
@@ -789,23 +909,33 @@ class FrameEncoder:
         b = yp.shape[0]
         modes, costs = _dense_mode_decision(yp, g, self.qp)
 
-        # Intra TU quadtree per CU size. Only the 8x8 CU's cost is read
-        # again (by the NxN decision below): the other sizes' costs feed
-        # the RD quadtree search, which the CNN path does not run.
+        # Intra TU quadtree per CU size: each CU's full-TU cost becomes its
+        # best-tree cost, and the per-slot leaf-size maps go to stage 2.
         tz = {}
-        for n, cu_log2 in ((64, 6), (32, 5), (16, 4), (8, 3)):
-            t_cost, rd_full, tz[n] = _tu_tree_decision(yp, g, self.qp,
-                                                       cu_log2, modes[n])
-            if n == 8:
-                costs[8] = costs[8] + (t_cost - rd_full)
+        if self.tu_split:
+            for n, cu_log2 in ((64, 6), (32, 5), (16, 4), (8, 3)):
+                t_cost, rd_full, tz[n] = _tu_tree_decision(
+                    yp, g, self.qp, cu_log2, modes[n])
+                costs[n] = costs[n] + (t_cost - rd_full)
 
         # PART_NxN vs PART_2Nx2N at depth 3: four 4x4 DST TUs with their
         # own modes vs one 8x8 TU.
-        nxn_map = _pool2(costs[4]) < costs[8]
+        if self.nxn:
+            c_nxn = _pool2(costs[4])
+            nxn_map = c_nxn < costs[8]
+            costs[8] = torch.minimum(costs[8], c_nxn)
+        else:
+            nxn_map = torch.zeros_like(costs[8], dtype=torch.bool)
 
-        csel, cmodes = _dense_chroma_decision(up, vp, g, self.qp, self.qp_c,
-                                              modes)
+        csel, cmodes, ccosts = _dense_chroma_decision(up, vp, g, self.qp,
+                                                      self.qp_c, modes)
 
+        # Partition: the CNN labels, or the RD quadtree decision (costs[8]
+        # already holds the NxN alternative; its chroma is ccosts[8]
+        # either way, one 4x4 chroma TU per 8x8 luma CU).
+        if self.search == "rd":
+            labels = _rd_split_labels(
+                {n: costs[n] + ccosts[n] for n in ccosts}, self.qp)
         bh, bw = (torch.as_tensor(x, device=yp.device) for x in g.bh_bw)
         depth8, coded8 = ctu.derive_slot_depths(
             labels.reshape(b, g.rc, g.cc, 16), bh[None, :, None],
@@ -842,9 +972,12 @@ class FrameEncoder:
 
         # per-slot leaf TU size: the chosen CU size's tree (2 = four 4x4)
         d8f = from_blocked(depth8)
-        tusz_frame = torch.where(
-            d8f == 0, tz[64], torch.where(d8f == 1, tz[32], torch.where(
-                d8f == 2, tz[16], tz[8])))
+        if self.tu_split:
+            tusz_frame = torch.where(
+                d8f == 0, tz[64], torch.where(d8f == 1, tz[32], torch.where(
+                    d8f == 2, tz[16], tz[8])))
+        else:
+            tusz_frame = torch.clamp_max(6 - d8f, 5)
         tusz_frame = torch.where(nxn8_frame, 2, tusz_frame).to(torch.int32)
 
         return dict(mode_slot=mode_slot,
@@ -854,23 +987,30 @@ class FrameEncoder:
                     csel8_frame=csel8_frame, nxn8_frame=nxn8_frame)
 
     def _loop_filters_and_cast(self, yp, up, vp, out, tusz_frame):
-        """Deblock, then SAO against the original, crop, picture digests
-        and SSE, and the output casts."""
+        """Deblock (per-slot QPs under a QP map), then SAO against the
+        original, each when on; crop, picture digests and SSE, and the
+        output casts."""
         g = self.geom
-        fy, fu, fv = deblock.deblock_frame(
-            out["recon_y"], out["recon_u"], out["recon_v"], tusz_frame,
-            self.qp, g.h, g.w)
-        ys = sao.ctu_stats(yp, fy, g.h, g.w, 64)
-        us = sao.ctu_stats(up, fu, g.h // 2, g.w // 2, 32)
-        vs = sao.ctu_stats(vp, fv, g.h // 2, g.w // 2, 32)
-        st, se, sbp, soff, smrg = sao.decide_params(ys, us, vs, self.qp,
-                                                    self.qp_c)
-        fy = sao.apply_sao(fy, st, se, sbp, soff, 0, g.h, g.w, 64)
-        fu = sao.apply_sao(fu, st, se, sbp, soff, 1, g.h // 2, g.w // 2, 32)
-        fv = sao.apply_sao(fv, st, se, sbp, soff, 2, g.h // 2, g.w // 2, 32)
-        out["sao_type"], out["sao_eo"] = st, se
-        out["sao_bp"], out["sao_off"] = sbp, soff
-        out["sao_merge"] = smrg
+        fy, fu, fv = out["recon_y"], out["recon_u"], out["recon_v"]
+        if self.deblock:
+            db_qp = (_rep2(out["qp_ctu"], 8) if "qp_ctu" in out
+                     else self.qp)
+            fy, fu, fv = deblock.deblock_frame(fy, fu, fv, tusz_frame, db_qp,
+                                               g.h, g.w)
+        if self.sao:
+            ys = sao.ctu_stats(yp, fy, g.h, g.w, 64)
+            us = sao.ctu_stats(up, fu, g.h // 2, g.w // 2, 32)
+            vs = sao.ctu_stats(vp, fv, g.h // 2, g.w // 2, 32)
+            st, se, sbp, soff, smrg = sao.decide_params(ys, us, vs, self.qp,
+                                                        self.qp_c)
+            fy = sao.apply_sao(fy, st, se, sbp, soff, 0, g.h, g.w, 64)
+            fu = sao.apply_sao(fu, st, se, sbp, soff, 1, g.h // 2, g.w // 2,
+                               32)
+            fv = sao.apply_sao(fv, st, se, sbp, soff, 2, g.h // 2, g.w // 2,
+                               32)
+            out["sao_type"], out["sao_eo"] = st, se
+            out["sao_bp"], out["sao_off"] = sbp, soff
+            out["sao_merge"] = smrg
         out["recon_y"] = fy[:, : g.h, : g.w]
         out["recon_u"] = fu[:, : g.h // 2, : g.w // 2]
         out["recon_v"] = fv[:, : g.h // 2, : g.w // 2]
@@ -884,10 +1024,33 @@ class FrameEncoder:
         return {k: (t.to(_OUT_CAST[k]) if k in _OUT_CAST else t)
                 for k, t in out.items()}
 
+    def _ctu_qps(self, qp_map, bi, ri, ci):
+        """Quantizer settings of one diagonal's CTUs: (luma qp, chroma qp
+        [2BA], RDOQ λ luma/chroma, TS λ luma/chroma). Static scalars
+        without a QP map; with one, each CTU's QP is gathered, chroma QP
+        goes through Table 8-10 and the λs scale by 2^((qp - sliceQP)/3)
+        (`lambda_scale`)."""
+        if qp_map is None:
+            return (self.qp, self.qp_c, self.rdoq_lam, self.rdoq_lam_c,
+                    self.ts_lam, self.ts_lam_c)
+        qp_l = qp_map[bi, ri, ci]
+        sc = lambda_scale(qp_l - self.qp)
+        qp_c2 = deblock.qp_tables(qp_l.device)[2][
+            torch.clamp(qp_l, 0, 57).long()].repeat(2)
+        sc2 = sc.repeat(2)
+
+        def scaled(lam, s):
+            return lam * s if lam else 0.0
+
+        return (qp_l, qp_c2, scaled(self.rdoq_lam, sc),
+                scaled(self.rdoq_lam_c, sc2), scaled(self.ts_lam, sc),
+                scaled(self.ts_lam_c, sc2))
+
     def _reconstruct(self, yp, up, vp, mode_slot, cmode_slot, tusz_slot,
-                     coded8, mode4_blk):
+                     coded8, mode4_blk, qp_map=None):
         """Wavefront reconstruction (single device): diagonals in order,
-        the planned TU steps of each in z-order."""
+        the planned TU steps of each in z-order. qp_map [B, rc, cc] gives
+        each CTU its own QP and λs."""
         g = self.geom
         b = yp.shape[0]
         dev = yp.device
@@ -942,6 +1105,8 @@ class FrameEncoder:
             cy4 = torch.zeros((ba, 16, 16), dtype=torch.bool, device=dev)
             ty4 = torch.zeros((ba, 16, 16), dtype=torch.bool, device=dev)
             tc8 = torch.zeros((2 * ba, 8, 8), dtype=torch.bool, device=dev)
+            qp_l, qp_c2, rl_y, rl_c, tl_y, tl_c = self._ctu_qps(qp_map, bi,
+                                                                ri, ci)
 
             for n, oy, ox, lstep, cstep in steps:
                 if n == 4:
@@ -949,8 +1114,8 @@ class FrameEncoder:
                     sy, sx = oy // 4, ox // 4
                     cbf, ts = _tu_step(
                         ext_y, vy, oyl, mm4[:, sy, sx], fire, oy, ox, 4,
-                        self.qp, av, is_luma=True, rdoq_lam=self.rdoq_lam,
-                        dst=True, ts_lam=self.ts_lam, rate_qp=self.qp)
+                        qp_l, av, is_luma=True, rdoq_lam=rl_y, dst=True,
+                        ts_lam=tl_y, rate_qp=self.qp, sbh=self.sbh)
                     cy4[:, sy, sx] = torch.where(fire, cbf, cy4[:, sy, sx])
                     ty4[:, sy, sx] = torch.where(fire, ts, ty4[:, sy, sx])
                     continue
@@ -959,16 +1124,16 @@ class FrameEncoder:
                     fire, av = (upload.get(h) for h in lstep)
                     cbf, _ = _tu_step(
                         ext_y, vy, oyl, msl[:, sy, sx], fire, oy, ox, n,
-                        self.qp, av, is_luma=True, rdoq_lam=self.rdoq_lam,
-                        dst=False, ts_lam=0.0, rate_qp=self.qp)
+                        qp_l, av, is_luma=True, rdoq_lam=rl_y, dst=False,
+                        ts_lam=0.0, rate_qp=self.qp, sbh=self.sbh)
                     cy8[:, sy, sx] = torch.where(fire, cbf, cy8[:, sy, sx])
                 if cstep:
                     fire, av = (upload.get(h) for h in cstep)
                     cbf, ts = _tu_step(
                         ext_c, vc, ouv, cm8[:, sy, sx].repeat(2), fire,
-                        oy // 2, ox // 2, n // 2, self.qp_c, av,
-                        is_luma=False, rdoq_lam=self.rdoq_lam_c, dst=False,
-                        ts_lam=self.ts_lam_c, rate_qp=self.qp_c)
+                        oy // 2, ox // 2, n // 2, qp_c2, av,
+                        is_luma=False, rdoq_lam=rl_c, dst=False,
+                        ts_lam=tl_c, rate_qp=self.qp_c, sbh=self.sbh)
                     cc8[:, sy, sx] = torch.where(fire, cbf, cc8[:, sy, sx])
                     tc8[:, sy, sx] = torch.where(fire, ts, tc8[:, sy, sx])
 

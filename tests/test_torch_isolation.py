@@ -62,9 +62,8 @@ def test_tf32_is_off():
     assert not torch.backends.cudnn.allow_tf32
 
 
-@pytest.mark.parametrize("option", [
-    {"search": "rd"}, {"rate_model": "ctx"}, {"two_pass": True},
-    {"rdoq": False}, {"sao": False}, {"tu_split": False}])
+@pytest.mark.parametrize("option", [{"rate_model": "ctx"},
+                                    {"two_pass": True}])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError):
         FrameEncoder(64, 128, 32, device="cpu", **option)
@@ -74,9 +73,8 @@ def test_unported_calls_raise():
     enc = FrameEncoder(64, 128, 32, device="cpu")
     y = np.zeros((1, 64, 128), np.uint8)
     c = np.zeros((1, 32, 64), np.uint8)
-    labels = np.zeros((1, 2, 16), np.int32)
     with pytest.raises(NotImplementedError):
-        enc.encode(y, c, c, labels, qp_map=np.full((1, 1, 2), 32))
+        enc.encode_fused_dispatch(None, y, c, c, lite=True)
     with pytest.raises(NotImplementedError):
         enc.collect({}, lite=True)
     with pytest.raises(ValueError):
