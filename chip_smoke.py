@@ -31,10 +31,21 @@ Phases (each fails the run with a nonzero exit):
      same file: the hash verifies, more than one CTU QP is coded; the
      per-picture QPs and the achieved kbps;
   9. search="rd" with a random per-CTU QP map at 128x192 x 2 on the card
-     and on the CPU port: the streams must be byte-identical.
+     and on the CPU port: the streams must be byte-identical;
+ 10. the serving options at 416x240 x 4 frames (CNN labels, one batch):
+     (a) rate_model="ctx" and (b) two_pass=True, each decoded back with
+     the hash SEI verifying and the decoded YUV equal to the recon, K1
+     launched 4 and 8 times; (c) bench.py's call, encode_fused_dispatch +
+     collect with lite=True and the checksum hash, against the same batch
+     with lite=False: every shared key equal, the streams byte-identical,
+     the device->host bytes of both dicts printed; and stage 1 alone,
+     warm, under each rate model (CUDA events);
+ 11. rate_model="ctx" with search="rd", and two_pass=True with
+     search="rd", at 128x192 x 2 on the card and on the CPU port: the
+     streams must be byte-identical.
 Then one JSON line of the paths, one of the kernels (K1's launches summed
-over the paths 4, 5, 7, 8 and 9's card encode), the card's name and power
-limit, and the last line {"ok": true, "device": {...}}.
+over the paths 4, 5, 7, 8, 9, 10 and 11's card encodes), the card's name
+and power limit, and the last line {"ok": true, "device": {...}}.
 
 Run from the repository root: python3 chip_smoke.py
 It exits nonzero, printing no result, without CUDA or without the repo.
@@ -236,8 +247,15 @@ def load_cnn(device):
     return convnet2.load_model(params, device)
 
 
-def run_path(h, w, frames, cnn, dev, label):
-    """One batch of the main path; returns (stats, output dict, stream)."""
+def psnr_y(sse: np.ndarray, h: int, w: int) -> float:
+    """Mean luma PSNR (dB) over frames from the encoder's per-plane SSE."""
+    mse = sse[:, 0].astype(np.float64) / (h * w)
+    return float(np.mean(10 * np.log10(255.0 ** 2 / np.maximum(mse, 1e-9))))
+
+
+def run_path(h, w, frames, cnn, dev, label, want_launches=4, **options):
+    """One batch of the main path (FrameEncoder options as given);
+    returns (stats, output dict, stream)."""
     import torch
     from hevctpu_torch.codec import decoder, headers
     from hevctpu_torch.ops import satd_fused
@@ -245,7 +263,7 @@ def run_path(h, w, frames, cnn, dev, label):
     from hevctpu_torch.pipeline.encoder import FrameEncoder
 
     y, u, v = clips.clip_sine(frames, h, w, seed=0)
-    enc = FrameEncoder(h, w, QP, device=dev)
+    enc = FrameEncoder(h, w, QP, device=dev, **options)
     cfg = headers.StreamConfig(width=w, height=h, qp=QP,
                                hash_type="checksum")
     satd_fused.LAUNCHES = 0
@@ -256,8 +274,9 @@ def run_path(h, w, frames, cnn, dev, label):
     t2 = time.perf_counter()
     launches = satd_fused.LAUNCHES
     stages = enc.stage_ms()
-    if launches != 4:
-        fail(f"{label}: K1 launched {launches} times for one batch, not 4")
+    if launches != want_launches:
+        fail(f"{label}: K1 launched {launches} times for one batch, not "
+             f"{want_launches}")
     dec = decoder.Decoder()
     got = dec.decode(stream)
     if not (dec.hashes_ok and all(dec.hashes_ok) and len(got) == frames):
@@ -270,12 +289,11 @@ def run_path(h, w, frames, cnn, dev, label):
     for k in ("recon_y", "levels_y", "sse"):
         if not np.isfinite(out[k].astype(np.float64)).all():
             fail(f"{label}: non-finite {k}")
-    mse = out["sse"][:, 0].astype(np.float64) / (h * w)
-    psnr = float(np.mean(10 * np.log10(255.0 ** 2 / np.maximum(mse, 1e-9))))
     stats = dict(frames=frames, fps=frames / (t2 - t0),
                  encode_s=t1 - t0, cabac_ms=(t2 - t1) * 1e3,
                  stage_ms={k: round(v, 3) for k, v in stages.items()},
-                 bytes=len(stream), psnr_y=psnr, k1_launches=launches,
+                 bytes=len(stream), psnr_y=psnr_y(out["sse"], h, w),
+                 k1_launches=launches,
                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     log(f"  {label}: {json.dumps(stats)}")
     return stats, out, stream
@@ -291,7 +309,7 @@ def first_difference(a: dict, b: dict):
     return None
 
 
-def cost_margin(y, u, v, dev):
+def cost_margin(y, u, v, dev, rate_model="global"):
     """Largest |card - CPU| stage-1 RD cost of the dense mode decision on
     one frame, per block size: the float disagreement behind a flip."""
     import torch
@@ -302,7 +320,8 @@ def cost_margin(y, u, v, dev):
     for d in (dev, torch.device("cpu")):
         yp = E.pad_plane(torch.as_tensor(y.astype(np.int32)).to(d),
                          g.hp, g.wp)
-        per.append(E._dense_mode_decision(yp, g, QP)[1])
+        per.append(E._dense_mode_decision(yp, g, QP,
+                                          rate_model=rate_model)[1])
     for n in per[0]:
         res[n] = float((per[0][n].cpu() - per[1][n]).abs().max())
     return res
@@ -378,44 +397,60 @@ def phase_cli(tmp: str, extra, frames: int, label: str, want_launches: int):
     return stats, dec
 
 
+def rd_card_vs_cpu(dev, label, clip, cfg, want_launches=4, qp_map=None,
+                   **options):
+    """search="rd" encodes of clip (y, u, v [B, H, W]) on the card and on
+    the CPU port with the given FrameEncoder options: the streams must be
+    byte-identical, and the card must launch K1 want_launches times.
+    Returns (the card's output dict, the stream, its K1 launches)."""
+    from hevctpu_torch.codec import decoder
+    from hevctpu_torch.ops import satd_fused
+    from hevctpu_torch.pipeline.encoder import FrameEncoder
+    y, u, v = clip
+    h, w = y.shape[-2:]
+    outs, streams, launches = [], [], 0
+    for d in (dev, "cpu"):
+        satd_fused.LAUNCHES = 0
+        outs.append(FrameEncoder(h, w, QP, device=d, search="rd",
+                                 **options).encode(y, u, v, qp_map=qp_map))
+        launches = launches or satd_fused.LAUNCHES
+        streams.append(decoder.encode_stream(cfg, [outs[-1]]))
+    if launches != want_launches:
+        fail(f"{label} card encode: K1 launched {launches} times, not "
+             f"{want_launches}")
+    if streams[0] != streams[1]:
+        diff = first_difference(outs[0], outs[1])
+        margin = cost_margin(y[:1], u[:1], v[:1], dev,
+                             options.get("rate_model", "global"))
+        fail(f"{label}: card and CPU streams differ: first field {diff}; "
+             f"max |card - CPU| stage-1 RD cost per size {margin}")
+    log(f"  {label}: card and CPU streams byte-identical "
+        f"({len(streams[0])} bytes)")
+    return outs[0], streams[0], launches
+
+
 def rd_frame_card_vs_cpu(tmp: str, dev) -> int:
     """Frame 0 of the 416x240 file, search="rd", on the card and on the
     CPU port: the streams must be byte-identical, and the card's recon
     must equal frame 0 of the CLI's --recon. Returns the stream bytes."""
-    from hevctpu_torch.codec import decoder, headers
+    from hevctpu_torch.codec import headers
     from hevctpu_torch.pipeline import yuv
-    from hevctpu_torch.pipeline.encoder import FrameEncoder
-    y, u, v = (p.astype(np.int32) for p in yuv.read_yuv420(
-        os.path.join(tmp, "in416.yuv"), 416, 240, 1))
+    clip = [p.astype(np.int32) for p in yuv.read_yuv420(
+        os.path.join(tmp, "in416.yuv"), 416, 240, 1)]
     cfg = headers.StreamConfig(width=416, height=240, qp=QP,
                                hash_type="checksum")
-    outs, streams = [], []
-    for d in (dev, "cpu"):
-        outs.append(FrameEncoder(240, 416, QP, device=d,
-                                 search="rd").encode(y, u, v))
-        streams.append(decoder.encode_stream(cfg, [outs[-1]]))
-    if streams[0] != streams[1]:
-        diff = first_difference(outs[0], outs[1])
-        margin = cost_margin(y, u, v, dev)
-        fail(f"search=rd card and CPU streams differ: first field {diff};"
-             f" max |card - CPU| stage-1 RD cost per size {margin}")
+    out, stream, _ = rd_card_vs_cpu(dev, "frame 0, search=rd", clip, cfg)
     cli_rec = yuv.read_yuv420(os.path.join(tmp, "cli_rd.yuv"), 416, 240, 1)
     for k, plane in zip(("recon_y", "recon_u", "recon_v"), cli_rec):
-        if not np.array_equal(outs[0][k][0], plane[0]):
+        if not np.array_equal(out[k][0], plane[0]):
             fail(f"search=rd: the card's {k} differs from frame 0 of the "
                  f"CLI's --recon")
-    log(f"  frame 0, search=rd: card and CPU streams byte-identical "
-        f"({len(streams[0])} bytes), recon equal to the CLI's")
-    return len(streams[0])
+    log("  frame 0, search=rd: recon equal to the CLI's")
+    return len(stream)
 
 
-def phase_cuqp_card_vs_cpu(dev):
-    """search="rd" with a random per-CTU QP map, card vs CPU port (the
-    128x192 x 2 fixture of tests/test_cuqp.py)."""
-    from hevctpu_torch.codec import decoder, headers
-    from hevctpu_torch.ops import satd_fused
-    from hevctpu_torch.pipeline.encoder import FrameEncoder
-    h, w = 128, 192
+def cuqp_clip(h=128, w=192):
+    """The 128x192 x 2 fixture of tests/test_cuqp.py."""
     rng = np.random.default_rng(7)
     yy, xx = np.mgrid[0:h, 0:w]
     y = np.stack([(128 + 70 * np.sin(yy / 6) * np.cos(xx / 9)
@@ -423,26 +458,130 @@ def phase_cuqp_card_vs_cpu(dev):
                   for _ in range(2)])
     u = np.stack([(128 + 40 * np.cos(yy[::2, ::2] / 9)).astype(np.int32)] * 2)
     v = rng.integers(60, 200, (2, h // 2, w // 2)).astype(np.int32)
+    return y, u, v
+
+
+def phase_cuqp_card_vs_cpu(dev):
+    """search="rd" with a random per-CTU QP map, card vs CPU port (the
+    128x192 x 2 fixture of tests/test_cuqp.py)."""
+    from hevctpu_torch.codec import headers
     qmap = np.random.default_rng(11).integers(QP - 3, QP + 4, (2, 2, 3))
-    cfg = headers.StreamConfig(width=w, height=h, qp=QP, cu_qp_delta=True)
-    outs, streams, launches = [], [], 0
-    for d in (dev, "cpu"):
+    cfg = headers.StreamConfig(width=192, height=128, qp=QP,
+                               cu_qp_delta=True)
+    out, stream, launches = rd_card_vs_cpu(dev, "cu_qp_delta", cuqp_clip(),
+                                           cfg, qp_map=qmap)
+    qps = sorted(set(np.asarray(out["qp_ctu"]).ravel().tolist()))
+    log(f"  coded CTU QPs {qps}")
+    return dict(bytes=len(stream), ctu_qps=qps, k1_launches=launches)
+
+
+def dict_bytes(d: dict) -> int:
+    """Bytes of a dict of device tensors: what collect() moves to the
+    host."""
+    return sum(t.numel() * t.element_size() for t in d.values())
+
+
+def phase_lite(cnn, dev):
+    """bench.py's path at 416x240 x 4: encode_fused_dispatch + collect with
+    lite=True, checksum hash SEI, against the same batch with lite=False.
+    Returns (stats, K1 launches of both runs)."""
+    import torch
+    from hevctpu_torch.codec import decoder, headers
+    from hevctpu_torch.ops import satd_fused
+    from hevctpu_torch.pipeline import clips
+    from hevctpu_torch.pipeline.encoder import FrameEncoder
+    h, w, frames = 240, 416, 4
+    y, u, v = clips.clip_sine(frames, h, w, seed=0)
+    enc = FrameEncoder(h, w, QP, device=dev)
+    cfg = headers.StreamConfig(width=w, height=h, qp=QP,
+                               hash_type="checksum")
+    res, launches = {}, 0
+    for lite in (True, False):
         satd_fused.LAUNCHES = 0
-        outs.append(FrameEncoder(h, w, QP, device=d, search="rd").encode(
-            y, u, v, qp_map=qmap))
-        launches = launches or satd_fused.LAUNCHES
-        streams.append(decoder.encode_stream(cfg, [outs[-1]]))
-    if launches != 4:
-        fail(f"cu_qp_delta card encode: K1 launched {launches} times, not 4")
-    if streams[0] != streams[1]:
-        diff = first_difference(outs[0], outs[1])
-        margin = cost_margin(y[0], u[0], v[0], dev)
-        fail(f"cu_qp_delta card and CPU streams differ: first field {diff};"
-             f" max |card - CPU| stage-1 RD cost per size {margin}")
-    qps = sorted(set(np.asarray(outs[0]["qp_ctu"]).ravel().tolist()))
-    log(f"  streams byte-identical ({len(streams[0])} bytes), coded CTU QPs "
-        f"{qps}")
-    return dict(bytes=len(streams[0]), ctu_qps=qps, k1_launches=launches)
+        t0 = time.perf_counter()
+        dev_out = enc.encode_fused_dispatch(cnn, y, u, v, lite=lite)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        nbytes = dict_bytes(dev_out)
+        out = enc.collect(dev_out, lite=lite)
+        t2 = time.perf_counter()
+        stream = decoder.encode_stream(cfg, [out])
+        t3 = time.perf_counter()
+        if satd_fused.LAUNCHES != 4:
+            fail(f"lite={lite}: K1 launched {satd_fused.LAUNCHES} times for "
+                 f"one batch, not 4")
+        launches += satd_fused.LAUNCHES
+        res[lite] = (out, stream, dict(
+            fps=frames / (t3 - t0), collect_ms=(t2 - t1) * 1e3,
+            d2h_bytes=nbytes, bytes=len(stream),
+            stage_ms={k: round(x, 3) for k, x in enc.stage_ms().items()}))
+    (lite_out, lite_s, lite_st), (full_out, full_s, full_st) = res[True], \
+        res[False]
+    if "recon_y" in lite_out:
+        fail("lite: the collected dict carries recon planes")
+    if set(lite_out) != set(full_out) - {"recon_y", "recon_u", "recon_v"}:
+        fail(f"lite: keys {sorted(set(lite_out) ^ set(full_out))} differ")
+    for k in lite_out:
+        a, b = np.asarray(lite_out[k]), np.asarray(full_out[k])
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            fail(f"lite: {k} differs from the full path's")
+    if lite_s != full_s:
+        fail("lite and full streams differ")
+    dec = decoder.Decoder()
+    got = dec.decode(lite_s)
+    if len(got) != frames or not all(dec.hashes_ok):
+        fail("lite: the checksum hash SEI did not verify")
+    for i, (ry, _, _) in enumerate(got):
+        if not np.array_equal(ry, full_out["recon_y"][i]):
+            fail(f"lite: decoded frame {i} differs from the full recon")
+    stats = dict(frames=frames, bytes=len(lite_s),
+                 psnr_y=psnr_y(lite_out["sse"], h, w), lite=lite_st,
+                 full=full_st,
+                 d2h_ratio=full_st["d2h_bytes"] / lite_st["d2h_bytes"],
+                 k1_launches=launches)
+    log(f"  lite: {json.dumps(stats)}")
+    return stats, launches
+
+
+def stage1_warm_ms(cnn, dev) -> dict:
+    """Warm device ms of stage 1 (_decide) alone on the 416x240 x 4 batch
+    with CNN labels, under each rate model: the mean of 3 calls after one
+    warm-up call. Its K1 launches are not a path's."""
+    import torch
+    from hevctpu_torch.models import convnet2
+    from hevctpu_torch.pipeline import clips
+    from hevctpu_torch.pipeline import encoder as E
+    h, w = 240, 416
+    y, u, v = (torch.as_tensor(p.astype(np.int32)).to(dev)
+               for p in clips.clip_sine(4, h, w, seed=0))
+    labels = convnet2.predict_frame_labels(cnn, y, u, v, h, w).to(
+        torch.int32)
+    res = {}
+    for rate_model in ("global", "ctx"):
+        enc = E.FrameEncoder(h, w, QP, device=dev, rate_model=rate_model)
+        g = enc.geom
+        planes = (E.pad_plane(y, g.hp, g.wp),
+                  E.pad_plane(u, g.hp // 2, g.wp // 2),
+                  E.pad_plane(v, g.hp // 2, g.wp // 2))
+        res[rate_model] = cuda_ms(lambda: enc._decide(*planes, labels), 3)
+    log(f"  stage 1 alone, warm, 416x240 x 4: global {res['global']:.3f} "
+        f"ms, ctx {res['ctx']:.3f} ms")
+    return res
+
+
+def phase_options_card_vs_cpu(dev):
+    """rate_model="ctx" and two_pass=True, each with search="rd", on the
+    128x192 x 2 fixture: card and CPU port streams byte-identical."""
+    from hevctpu_torch.codec import headers
+    cfg = headers.StreamConfig(width=192, height=128, qp=QP)
+    stats = dict(k1_launches=0)
+    for name, want, opts in (("ctx_rd", 4, dict(rate_model="ctx")),
+                             ("two_pass_rd", 8, dict(two_pass=True))):
+        _, stream, n = rd_card_vs_cpu(dev, name, cuqp_clip(), cfg, want,
+                                      **opts)
+        stats[name] = len(stream)
+        stats["k1_launches"] += n
+    return stats, stats["k1_launches"]
 
 
 def main() -> int:
@@ -562,6 +701,24 @@ def main() -> int:
     cuqp = phase_cuqp_card_vs_cpu(dev)
     launches += cuqp["k1_launches"]
 
+    log("phase 10: serving options, 416x240 x 4 frames, CNN labels")
+    torch.cuda.reset_peak_memory_stats()
+    ctx, _, _ = run_path(240, 416, 4, cnn, dev, "ctx_416x240x4",
+                         rate_model="ctx")
+    launches += ctx["k1_launches"]
+    torch.cuda.reset_peak_memory_stats()
+    two, _, _ = run_path(240, 416, 4, cnn, dev, "two_pass_416x240x4",
+                         want_launches=8, two_pass=True)
+    launches += two["k1_launches"]
+    lite, n = phase_lite(cnn, dev)
+    launches += n
+    stage1 = stage1_warm_ms(cnn, dev)
+
+    log("phase 11: ctx and two_pass with search=rd, 128x192 x 2, card vs "
+        "CPU port")
+    opts, n = phase_options_card_vs_cpu(dev)
+    launches += n
+
     unchecked = sorted(K1_LAUNCHED - k1["checked"])
     if unchecked:
         fail(f"K1 launched at (n, M, luma) {unchecked}, never held against "
@@ -580,7 +737,12 @@ def main() -> int:
     print(json.dumps({"paths": {"416x240": sd, "1920x1080": hd,
                                 "cli_rd_416x240x4": cli_rd,
                                 "cli_rc_416x240x4": cli_rc,
-                                "cuqp_128x192x2": cuqp},
+                                "cuqp_128x192x2": cuqp,
+                                "ctx_416x240x4": ctx,
+                                "two_pass_416x240x4": two,
+                                "lite_416x240x4": lite,
+                                "stage1_warm_416x240x4": stage1,
+                                "options_128x192x2": opts},
                       "k1_build_s": build_s, "k1": k1["shapes"],
                       "sm_clock_hz": sm_hz}))
     print(json.dumps({"kernels": kernels}))

@@ -20,10 +20,12 @@ and the geometry, so they are planned on the host once per batch
 its diagonal is skipped (a masked step writes nothing). The extended
 recon buffers are updated in place.
 
-The full-RD quadtree search (search="rd"), per-CTU QP maps (qp_map, for
-LCU-level rate control) and the coding-tool switches follow the JAX
-package. Options outside the port so far (rate_model="ctx", two_pass,
-lite transfer) raise NotImplementedError.
+The options follow the JAX package: the full-RD quadtree search
+(search="rd"), per-CTU QP maps (qp_map, for LCU-level rate control), the
+coding-tool switches, the context rate model (rate_model="ctx"), recon-
+feedback decisions (two_pass: stage 1 again on the first pass's recon
+boundaries) and the lite transfer (lite=True: the output dict packed on
+the device, unpacked by collect).
 """
 
 from __future__ import annotations
@@ -37,8 +39,8 @@ import torch
 import torch.nn.functional as F
 
 from hevctpu_torch import get_device, rom
-from hevctpu_torch.ops import (ctu, deblock, intra, intra_mm, quant, rate, rd,
-                               sao, satd_fused, transforms)
+from hevctpu_torch.ops import (ctu, deblock, intra, intra_mm, quant, rate,
+                               rate_ctx, rd, sao, satd_fused, transforms)
 from hevctpu_torch.ops.quant import seqsum
 
 # ---------------------------------------------------------------------------
@@ -154,25 +156,36 @@ def _grid_avail_t(geom: Geometry, n: int, scale: int,
     return torch.as_tensor(_grid_avail(geom, n, scale), device=device)
 
 
-def _grid_refs(plane: torch.Tensor, geom: Geometry, n: int, scale: int):
-    """Filled + smoothed references of every aligned n x n block:
-    (top_ext, left_ext, top_f, left_f), each [B, R, C, 2n+1]."""
-    bounds = intra_mm.grid_boundaries(plane, n)
+def _grid_refs(bsrc: torch.Tensor, geom: Geometry, n: int, scale: int):
+    """Filled + smoothed references of every aligned n x n block, read from
+    the plane bsrc: (top_ext, left_ext, top_f, left_f), each
+    [B, R, C, 2n+1]."""
+    bounds = intra_mm.grid_boundaries(bsrc, n)
     filled = intra.fill_reference(bounds,
-                                  _grid_avail_t(geom, n, scale, plane.device))
+                                  _grid_avail_t(geom, n, scale, bsrc.device))
     top_e, left_e = intra.split_boundary(filled, n)
     return (top_e, left_e) + intra.smooth_reference(top_e, left_e, n)
 
 
-def _dense_costs(plane: torch.Tensor, geom: Geometry, n: int) -> torch.Tensor:
+def _dense_costs(plane: torch.Tensor, geom: Geometry, n: int,
+                 bsrc: torch.Tensor | None = None) -> torch.Tensor:
     """SATD of all 35 luma modes at every aligned n x n position, through
-    K1: plane [B, hp, wp] -> [B, R, C, 35] int32."""
-    refs = _grid_refs(plane, geom, n, 1)
+    K1: plane [B, hp, wp] -> [B, R, C, 35] int32. bsrc (default: plane)
+    is the plane the neighbor boundaries are read from: a prior pass's
+    reconstruction under two_pass."""
+    refs = _grid_refs(plane if bsrc is None else bsrc, geom, n, 1)
     return satd_fused.dense_mode_costs(*refs, to_blocked(plane, n), n)
 
 
 _MODE_IDX = np.arange(35, dtype=np.int32)
 _MB_GLOBAL = (1.8, 2.8, 5.8)  # fitted (mpm0, mpm1/2, rem) signaling bits
+
+
+def _mode_bits_tab(qp: int, rate_model: str):
+    """(mpm_idx0, mpm_idx1/2, non-mpm) signaling bits."""
+    if rate_model == "ctx":
+        return rate_ctx.mode_signal_bits(qp)
+    return _MB_GLOBAL
 
 
 def _mpm_modes(best: torch.Tensor):
@@ -196,33 +209,37 @@ def _mpm_modes(best: torch.Tensor):
     return m0.to(i32), m1.to(i32), m2.to(i32)
 
 
-def _mode_bits_at(cand: torch.Tensor, m0, m1, m2,
-                  scale: float) -> torch.Tensor:
+def _mode_bits_at(cand: torch.Tensor, m0, m1, m2, scale: float,
+                  mb=_MB_GLOBAL) -> torch.Tensor:
     """scale-weighted signaling cost [..., K] float32 of the candidate
     modes given the MPM triple: prev_intra_luma_pred_flag + mpm_idx, or
-    flag + 5 bypass bins."""
+    flag + 5 bypass bins; mb holds the three totals (_mode_bits_tab)."""
     is0 = cand == m0[..., None]
     is12 = (cand == m1[..., None]) | (cand == m2[..., None])
-    mb = _MB_GLOBAL
     bits = torch.where(is0, mb[0], torch.where(is12, mb[1], mb[2]))
     return (scale * bits).to(torch.float32)
 
 
 def _dense_rd_candidates(plane: torch.Tensor, geom: Geometry, n: int,
                          cand: torch.Tensor, qp: int, lam: float, *,
-                         is_luma: bool = True,
-                         scale: int = 1) -> torch.Tensor:
+                         is_luma: bool = True, scale: int = 1,
+                         bsrc: torch.Tensor | None = None,
+                         rate_model: str = "ctx",
+                         cbf_ctx: int | None = None) -> torch.Tensor:
     """Full-RD cost [B, R, C, K] float32 of the candidate modes cand
     [B, R, C, K] at every aligned n x n position: predict all 35 (one
     matmul), gather the K candidates, transform + quant + rate for those
-    (residual RD only; mode-signaling bits are the caller's)."""
+    (residual RD only; mode-signaling bits are the caller's). Boundaries
+    come from bsrc (default: plane), blocks from plane; rate_model and
+    cbf_ctx go to rd.mode_rd_costs."""
     b, hp, wp = plane.shape
     r_n, c_n = hp // n, wp // n
     kc = cand.shape[-1]
-    refs = _grid_refs(plane, geom, n, scale)
+    refs = _grid_refs(plane if bsrc is None else bsrc, geom, n, scale)
     blocks = to_blocked(plane, n)
     log2 = int(np.log2(n))
-    per_row = b * c_n * (35 + 6 * kc) * n * n * 8
+    per_tu = 18 if rate_model == "ctx" else 6    # live [.., K, n, n] words
+    per_row = b * c_n * (35 + per_tu * kc) * n * n * 8
     rows = int(max(1, min(r_n, _CHUNK_BYTES // per_row)))
     out = []
     for r0 in range(0, r_n, rows):
@@ -233,7 +250,9 @@ def _dense_rd_candidates(plane: torch.Tensor, geom: Geometry, n: int,
         sel = torch.gather(preds, -3, cd[..., None, None].expand(
             cd.shape + (n, n)))
         rdc, _, _ = rd.mode_rd_costs(sel, blocks[:, sl], log2, qp, lam=lam,
-                                     dst=(is_luma and n == 4))
+                                     dst=(is_luma and n == 4),
+                                     is_luma=is_luma, rate_model=rate_model,
+                                     cbf_ctx=cbf_ctx)
         out.append(rdc)
     return torch.cat(out, dim=1)
 
@@ -243,7 +262,8 @@ def _dense_rd_candidates(plane: torch.Tensor, geom: Geometry, n: int,
 _NUM_CAND = {4: 8, 8: 8, 16: 3, 32: 3, 64: 3}
 
 
-def _pass1_candidates(satd: torch.Tensor, lam: float, n: int):
+def _pass1_candidates(satd: torch.Tensor, lam: float, n: int,
+                      mb=_MB_GLOBAL):
     """HM's pass-1 preselection: SATD + sqrt(λ)·mode-bits, keep top-N
     (lowest cost, lower mode first on ties, as lax.top_k), then the 3
     MPMs from the provisional SATD argmin grid. satd [B, R, C, 35] ->
@@ -253,7 +273,7 @@ def _pass1_candidates(satd: torch.Tensor, lam: float, n: int):
     all_modes = torch.as_tensor(_MODE_IDX, device=satd.device).expand(
         satd.shape)
     p1 = satd.to(torch.float32) + _mode_bits_at(
-        all_modes, m0, m1, m2, float(np.sqrt(lam)))
+        all_modes, m0, m1, m2, float(np.sqrt(lam)), mb)
     topn = torch.sort(p1, dim=-1, stable=True).indices[..., :_NUM_CAND[n]]
     cand = torch.cat([topn.to(torch.int32), m0[..., None], m1[..., None],
                       m2[..., None]], dim=-1)
@@ -266,20 +286,25 @@ def _best_of(rdc: torch.Tensor, cand: torch.Tensor):
     return torch.gather(cand, -1, best[..., None])[..., 0], cost
 
 
-def _dense_mode_decision(plane: torch.Tensor, geom: Geometry, qp: int):
+def _dense_mode_decision(plane: torch.Tensor, geom: Geometry, qp: int,
+                         bsrc: torch.Tensor | None = None,
+                         rate_model: str = "ctx"):
     """RD-best luma mode + cost for every CU/PU position at every depth:
     pass 1 scores all 35 modes by SATD + sqrt(λ)·mode-bits (K1), pass 2
     full-RDs the top-N + 3 MPM candidates. Returns (modes {n: [B,R,C]
     int32}, costs {n: [B,R,C] float32}) for n in (64, 32, 16, 8, 4); the
-    64 entry evaluates its candidates as four 32x32 TUs."""
+    64 entry evaluates its candidates as four 32x32 TUs. Boundaries come
+    from bsrc (default: plane)."""
     lam = rate.lambda_rd(qp)
+    mb = _mode_bits_tab(qp, rate_model)
     modes, costs = {}, {}
     satd32 = None
     for n in (32, 16, 8, 4):
-        satd = _dense_costs(plane, geom, n)
-        cand, (m0, m1, m2) = _pass1_candidates(satd, lam, n)
-        rdc = (_dense_rd_candidates(plane, geom, n, cand, qp, lam)
-               + _mode_bits_at(cand, m0, m1, m2, lam))
+        satd = _dense_costs(plane, geom, n, bsrc)
+        cand, (m0, m1, m2) = _pass1_candidates(satd, lam, n, mb)
+        rdc = (_dense_rd_candidates(plane, geom, n, cand, qp, lam,
+                                    bsrc=bsrc, rate_model=rate_model)
+               + _mode_bits_at(cand, m0, m1, m2, lam, mb))
         modes[n], costs[n] = _best_of(rdc, cand)
         if n == 32:
             satd32 = satd
@@ -288,13 +313,13 @@ def _dense_mode_decision(plane: torch.Tensor, geom: Geometry, qp: int):
     b, r32, c32 = satd32.shape[:3]
     s64 = satd32.reshape(b, r32 // 2, 2, c32 // 2, 2, 35).sum(
         dim=(2, 4)).to(torch.int32)
-    cand64, (m0, m1, m2) = _pass1_candidates(s64, lam, 64)
+    cand64, (m0, m1, m2) = _pass1_candidates(s64, lam, 64, mb)
     rd_q = _dense_rd_candidates(plane, geom, 32, _rep2(cand64.movedim(-1, 1),
                                                        2).movedim(1, -1),
-                                qp, lam)
+                                qp, lam, bsrc=bsrc, rate_model=rate_model)
     kc = cand64.shape[-1]
     rd64 = (seqsum(rd_q.reshape(b, r32 // 2, 2, c32 // 2, 2, kc), (2, 4))
-            + _mode_bits_at(cand64, m0, m1, m2, lam))
+            + _mode_bits_at(cand64, m0, m1, m2, lam, mb))
     modes[64], costs[64] = _best_of(rd64, cand64)
     return modes, costs
 
@@ -305,16 +330,20 @@ _CHROMA_SEL_BITS = (2.6, 2.6, 2.6, 2.6, 0.6)   # 4 list entries, DM
 
 
 def _dense_chroma_decision(up, vp, geom: Geometry, qp: int, qp_c: int,
-                           luma_modes: dict):
+                           luma_modes: dict, bsrc_u=None, bsrc_v=None,
+                           rate_model: str = "ctx"):
     """Per-CU chroma mode selection: joint Cb+Cr RD of the 4 list modes
     (with the ==luma -> 34 substitution) and DM, keyed by luma CU size n
-    in (64, 32, 16, 8). Returns (csel {n: [B,R,C] int32, 0..3 list index
-    or 4 = DM}, cmode {n: [B,R,C] int32 resolved chroma mode}, ccost {n:
-    [B,R,C] float32 w_c-weighted joint chroma RD at the choice})."""
+    in (64, 32, 16, 8); boundaries from bsrc_u/bsrc_v (default: the
+    planes). Returns (csel {n: [B,R,C] int32, 0..3 list index or 4 = DM},
+    cmode {n: [B,R,C] int32 resolved chroma mode}, ccost {n: [B,R,C]
+    float32 w_c-weighted joint chroma RD at the choice})."""
     lam = rate.lambda_rd(qp)
     w_c = rate.chroma_dist_weight(qp, qp_c)
     lam_c = lam / w_c
-    sel_bits = torch.as_tensor(_CHROMA_SEL_BITS, dtype=torch.float32,
+    sel = (rate_ctx.chroma_sel_bits(qp) if rate_model == "ctx"
+           else _CHROMA_SEL_BITS)
+    sel_bits = torch.as_tensor(sel, dtype=torch.float32,
                                device=up.device) * lam_c
     chroma_list = torch.as_tensor(_CHROMA_LIST, device=up.device)
     csel, cmode, ccost = {}, {}, {}
@@ -325,9 +354,11 @@ def _dense_chroma_decision(up, vp, geom: Geometry, qp: int, qp_c: int,
         cand = torch.where(cand == lm[..., None], 34, cand)
         cand = torch.cat([cand, lm[..., None]], dim=-1)        # slot 4 = DM
         rd_u = _dense_rd_candidates(up, geom, m, cand, qp_c, lam_c,
-                                    is_luma=False, scale=2)
+                                    is_luma=False, scale=2, bsrc=bsrc_u,
+                                    rate_model=rate_model, cbf_ctx=0)
         rd_v = _dense_rd_candidates(vp, geom, m, cand, qp_c, lam_c,
-                                    is_luma=False, scale=2)
+                                    is_luma=False, scale=2, bsrc=bsrc_v,
+                                    rate_model=rate_model, cbf_ctx=0)
         jc = rd_u + rd_v + sel_bits
         jmin, best = torch.min(jc, dim=-1)
         csel[n] = best.to(torch.int32)
@@ -336,15 +367,24 @@ def _dense_chroma_decision(up, vp, geom: Geometry, qp: int, qp_c: int,
     return csel, cmode, ccost
 
 
-def _rd_split_labels(costs: dict, qp: int) -> torch.Tensor:
-    """Bottom-up RD quadtree decision (the "global" rate model's fitted
-    overheads) -> per-CTU 16-label vectors: the merged cost of the four
-    children (+ the split_cu_flag bin) against the parent CU, pooled 2x2
-    at each level. costs {n: [B, R, C]} for n in (64, 32, 16, 8). Returns
-    labels [B, rc*cc, 16] int32 in the CNN-label layout."""
+def _rd_split_labels(costs: dict, qp: int,
+                     rate_model: str = "ctx") -> torch.Tensor:
+    """Bottom-up RD quadtree decision -> per-CTU 16-label vectors: the
+    merged cost of the four children (+ the split_cu_flag bins) against
+    the parent CU, pooled 2x2 at each level. Under "ctx" every other
+    syntax element is already in the per-CU costs, and the split_cu_flag
+    bins are priced at init state (middle neighbor-depth context); the
+    "global" model keeps the fitted per-CU and split overheads. costs
+    {n: [B, R, C]} for n in (64, 32, 16, 8). Returns labels
+    [B, rc*cc, 16] int32 in the CNN-label layout."""
     lam = rate.lambda_rd(qp)
-    oh_cu = lam * 3.2    # per-CU fixed bins: chroma mode + cbf flags
-    oh_self, oh_split = 0.0, lam * 0.8  # split_cu_flag bin
+    if rate_model == "ctx":
+        s0, s1 = rate_ctx.split_cu_bits(qp)
+        oh_cu = 0.0
+        oh_self, oh_split = lam * s0, lam * s1
+    else:
+        oh_cu = lam * 3.2    # per-CU fixed bins: chroma mode + cbf flags
+        oh_self, oh_split = 0.0, lam * 0.8  # split_cu_flag bin
 
     c8 = costs[8] + oh_cu                    # min CU: no split flag
     c16_split = _pool2(c8) + oh_split
@@ -372,12 +412,14 @@ def _rd_split_labels(costs: dict, qp: int) -> torch.Tensor:
 
 
 def _tu_tree_decision(plane: torch.Tensor, geom: Geometry, qp: int,
-                      cu_log2: int, mode_cu: torch.Tensor):
+                      cu_log2: int, mode_cu: torch.Tensor, bsrc=None,
+                      rate_model: str = "ctx"):
     """Intra TU quadtree RD decision (checkFull vs checkSplit, max depth 3)
     for every CU position of size 2^cu_log2 with per-CU mode mode_cu
-    [B, Rc, Cc]: the RD of each TU size over the whole frame, folded
-    bottom-up. Returns (cost [B,Rc,Cc] best-tree luma RD, rd_full
-    [B,Rc,Cc] unsplit-TU RD, tusz [B, h8, w8] per-slot leaf log2)."""
+    [B, Rc, Cc]: the RD of each TU size over the whole frame (boundaries
+    from bsrc, default plane), folded bottom-up. Returns (cost [B,Rc,Cc]
+    best-tree luma RD, rd_full [B,Rc,Cc] unsplit-TU RD, tusz [B, h8, w8]
+    per-slot leaf log2)."""
     lam = rate.lambda_rd(qp)
     top = min(cu_log2, 5)
     bottom = max(2, cu_log2 - 3)
@@ -387,12 +429,20 @@ def _tu_tree_decision(plane: torch.Tensor, geom: Geometry, qp: int,
     for s_log2 in range(bottom, top + 1):
         mode_s = _rep2(mode_cu, 1 << (cu_log2 - s_log2))
         rd_map[s_log2] = _dense_rd_candidates(
-            plane, geom, 1 << s_log2, mode_s[..., None], qp, lam)[..., 0]
+            plane, geom, 1 << s_log2, mode_s[..., None], qp, lam, bsrc=bsrc,
+            rate_model=rate_model,
+            cbf_ctx=1 if s_log2 == top else 0)[..., 0]
 
     t = rd_map[bottom]
     split = {}
-    oh = lam * 1.8    # split_transform_flag + duplicated chroma cbf bins
     for s_log2 in range(bottom + 1, top + 1):
+        if rate_model == "ctx":
+            # split_transform_flag at ctx 5-log2 (init state) + ~1 bin of
+            # duplicated chroma cbf signaling at the split node
+            st0, st1 = rate_ctx.split_tu_bits(qp, s_log2)
+            oh = lam * (st1 - st0 + 1.0)
+        else:
+            oh = lam * 1.8    # split_transform_flag + duplicated chroma cbf
         tsplit = _pool2(t) + oh
         split[s_log2] = tsplit < rd_map[s_log2]
         t = torch.minimum(rd_map[s_log2], tsplit)
@@ -684,6 +734,76 @@ def _checksum_plane(plane: torch.Tensor) -> torch.Tensor:
     return vals.sum(dim=(-2, -1)) & 0xffffffff
 
 
+# ---------------------------------------------------------------------------
+# Lite transfer: a smaller device->host dict. Recon planes are replaced by
+# the device checksum picture hash (the one hash type that is a parallel
+# reduction), levels ship as int8 with a sparse escape sidecar, and boolean
+# planes ship bitpacked.
+# ---------------------------------------------------------------------------
+
+_ESC_MAX = 4096  # escape slots per plane per frame (|level| > 127)
+
+
+def _pack_bits_device(x: torch.Tensor) -> torch.Tensor:
+    """Boolean [B, ...] -> uint8 [B, ceil(N/8)] (row-major, MSB first:
+    np.unpackbits-compatible)."""
+    b = x.shape[0]
+    flat = x.reshape(b, -1).to(torch.int32)
+    flat = F.pad(flat, (0, (-flat.shape[1]) % 8))
+    w = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32,
+                     device=x.device)
+    return (flat.reshape(b, -1, 8) * w).sum(dim=-1).to(torch.uint8)
+
+
+def _unpack_bits_host(packed: np.ndarray, shape) -> np.ndarray:
+    b = packed.shape[0]
+    n = int(np.prod(shape))
+    bits = np.unpackbits(np.asarray(packed, np.uint8), axis=1)[:, :n]
+    return bits.reshape((b,) + tuple(shape)).astype(bool)
+
+
+def _pack_levels_device(lvl: torch.Tensor):
+    """int levels [B, H, W] -> (int8 plane clipped to ±127, esc_pos
+    [B, _ESC_MAX] int32 flat positions of the first _ESC_MAX escapes
+    (|v| > 127) in raster order, -1 filled, esc_val [B, _ESC_MAX] int32
+    their levels, 0 filled, esc_n [B] int32 the escape count). Fixed
+    shapes and no host sync: each escape's rank (a cumsum) is its slot."""
+    b = lvl.shape[0]
+    flat = lvl.reshape(b, -1).to(torch.int32)
+    esc = flat.abs() > 127
+    esc_n = esc.sum(dim=-1).to(torch.int32)
+    rank = esc.to(torch.int64).cumsum(dim=-1) - 1
+    slot = torch.where(esc & (rank < _ESC_MAX), rank, _ESC_MAX)
+    pos = torch.full((b, _ESC_MAX + 1), -1, dtype=torch.int64,
+                     device=lvl.device)
+    src = torch.arange(flat.shape[1], device=lvl.device).expand_as(flat)
+    pos = pos.scatter(1, slot, src)[:, :_ESC_MAX]      # slot _ESC_MAX: spill
+    val = torch.gather(flat, 1, torch.clamp_min(pos, 0))
+    val = torch.where(pos >= 0, val, 0)
+    lv8 = torch.clamp(lvl, -127, 127).to(torch.int8)
+    return lv8, pos.to(torch.int32), val, esc_n
+
+
+def _unpack_levels_host(lv8, pos, val, esc_n, dtype) -> np.ndarray:
+    n_max = int(np.max(esc_n)) if esc_n.size else 0
+    if n_max > _ESC_MAX:
+        raise ValueError(
+            f"level escape sidecar overflow ({n_max} > {_ESC_MAX}): "
+            "re-encode without lite transfer (lite=False)")
+    out = np.asarray(lv8).astype(dtype)
+    if n_max:
+        flat = out.reshape(out.shape[0], -1)
+        for i in range(out.shape[0]):
+            p = pos[i][pos[i] >= 0]
+            flat[i, p] = val[i][: len(p)]
+    return out
+
+
+# boolean output planes, bitpacked by the lite transfer
+_LITE_BOOL_KEYS = ("cbf_y", "cbf_u", "cbf_v", "cbf4_y", "ts4_y",
+                   "ts8_u", "ts8_v")
+
+
 def _sse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     d = (a.to(torch.int64) - b.to(torch.int64))
     return (d * d).sum(dim=(-2, -1)).to(torch.float32)
@@ -723,9 +843,6 @@ _OUT_CAST = {"recon_y": torch.uint8, "recon_u": torch.uint8,
              "sao_bp": torch.int8, "sao_off": torch.int8,
              "sao_merge": torch.int8, "qp_ctu": torch.int8}
 
-# Options outside the port so far; any other value of these raises.
-_UNPORTED = dict(two_pass=False, rate_model="global")
-
 
 class FrameEncoder:
     """Encodes batches of frames of one geometry at one QP on one device.
@@ -736,31 +853,34 @@ class FrameEncoder:
         (encode) or from ConvNet2 on the same device (encode_fused).
       * "rd"  — full RD quadtree search: per-depth dense RD costs compared
         bottom-up (_rd_split_labels); labels are ignored.
-    The coding-tool switches (rdoq, sbh, ts, nxn, tu_split, deblock, sao)
-    turn their tool off when False, as in the JAX package."""
+    rate_model selects stage 1's rate estimator: "global" (per-bin-type
+    weights, ops/rate.py) or "ctx" (the exact residual bin stream at
+    frozen context states, ops/rate_ctx.py). two_pass runs stage 1 again
+    with neighbor boundaries read from the first pass's pre-filter
+    reconstruction (recon feedback), then reconstructs with the second
+    decisions. The coding-tool switches (rdoq, sbh, ts, nxn, tu_split,
+    deblock, sao) turn their tool off when False, as in the JAX
+    package."""
 
     def __init__(self, h: int, w: int, qp: int, *, device=None,
                  deblock: bool = True, search: str = "cnn",
                  rdoq: bool = True, sao: bool = True, sbh: bool = True,
                  nxn: bool = True, tu_split: bool = True, ts: bool = True,
-                 **options):
+                 two_pass: bool = False, rate_model: str = "global"):
         if h % 8 or w % 8:
             raise ValueError("HEVC requires dims % minCU == 0")
         if search not in ("cnn", "rd"):
             raise ValueError(f"search must be cnn|rd, got {search!r}")
-        unknown = set(options) - set(_UNPORTED)
-        if unknown:
-            raise TypeError(f"unknown FrameEncoder options {sorted(unknown)}")
-        off = {k: v for k, v in options.items() if v != _UNPORTED[k]}
-        if off:
-            raise NotImplementedError(
-                f"FrameEncoder options {off} are not ported; the port runs "
-                f"{_UNPORTED}")
+        if rate_model not in ("ctx", "global"):
+            raise ValueError(f"rate_model must be ctx|global, got "
+                             f"{rate_model!r}")
         self.device = get_device(device)
         self.geom = Geometry(h, w)
         self.qp = int(qp)
         self.qp_c = rom.chroma_qp_from_luma(self.qp)
         self.search = search
+        self.rate_model = rate_model
+        self.two_pass = two_pass
         self.deblock, self.sao, self.sbh = deblock, sao, sbh
         self.nxn, self.tu_split, self.ts = nxn, tu_split, ts
         lam = rate.lambda_rd(self.qp)
@@ -805,19 +925,23 @@ class FrameEncoder:
 
     def encode_fused(self, cnn, y, u, v, *, lite: bool = False) -> dict:
         """ConvNet2 depth labels + encode on the encoder's device; cnn is a
-        ConvNet2 (models.convnet2.load_model) on that device."""
+        ConvNet2 (models.convnet2.load_model) on that device. lite=True
+        ships the packed dict (see encode_fused_dispatch) and returns it
+        unpacked: no recon planes, the hash SEI comes from the device
+        checksum (hash_type="checksum")."""
         return self.collect(self.encode_fused_dispatch(cnn, y, u, v,
                                                        lite=lite), lite=lite)
 
     def encode_fused_dispatch(self, cnn, y, u, v, *,
                               lite: bool = False) -> dict:
         """Enqueue the labels + encode and return the on-device output
-        dict (tensors); pass it to collect(). Stage 2 reads the partition
-        to the host once to plan its steps."""
+        dict (tensors); pass it to collect() with the same lite. Stage 2
+        reads the partition to the host once to plan its steps. lite=True
+        packs the dict on the device for a smaller transfer: no recon
+        planes, levels as int8 + an escape sidecar, bool planes
+        bitpacked."""
         from hevctpu_torch.models import convnet2
 
-        if lite:
-            raise NotImplementedError("lite transfer is not ported")
         dev = next(cnn.parameters()).device
         if dev != self.device:
             raise ValueError(f"ConvNet2 is on {dev}, the encoder on "
@@ -833,21 +957,57 @@ class FrameEncoder:
         self._clock.mark("cnn")
         out = self._encode_impl(y, u, v, labels.to(torch.int32))
         out["labels"] = labels.to(torch.int8)
-        return out
+        return self._pack_lite(out) if lite else out
 
     def collect(self, dev_out: dict, *, lite: bool = False) -> dict:
-        """Fetch a dispatched output dict to host numpy arrays."""
-        if lite:
-            raise NotImplementedError("lite transfer is not ported")
+        """Fetch a dispatched output dict to host numpy arrays; lite=True
+        unpacks the lite dict to the standard layout without recon
+        planes."""
         out = {k: t.cpu().numpy() for k, t in dev_out.items()}
         out["hash_checksum"] = out["hash_checksum"].astype(np.uint32)
+        if lite:
+            out = self._unpack_lite(out)
         out["sbh"] = np.bool_(self.sbh)
         return out
 
     def stage_ms(self) -> dict:
         """Milliseconds of each stage of the last encode (upload, cnn,
-        stage1, stage2, filters), waiting for the device to finish."""
+        stage1, stage2, filters; under two_pass also pass1_stage2 and
+        pass2_stage1 between stage1 and stage2), waiting for the device
+        to finish."""
         return self._clock.ms()
+
+    def _pack_lite(self, out: dict) -> dict:
+        """Device-side lite packing of an output dict."""
+        packed = {k: t for k, t in out.items() if not k.startswith("recon_")}
+        for comp in ("y", "u", "v"):
+            lv8, pos, val, n = _pack_levels_device(out[f"levels_{comp}"])
+            packed[f"levels_{comp}"] = lv8
+            packed[f"esc_pos_{comp}"] = pos
+            packed[f"esc_val_{comp}"] = val
+            packed[f"esc_n_{comp}"] = n
+        for k in _LITE_BOOL_KEYS:
+            if k in packed:
+                packed[k] = _pack_bits_device(out[k])
+        return packed
+
+    def _unpack_lite(self, out: dict) -> dict:
+        """Host numpy lite dict -> the standard layout (int16 levels, bool
+        planes at their logical shapes), still without recon planes."""
+        g = self.geom
+        s4, s8 = (g.hp // 4, g.wp // 4), (g.hp // 8, g.wp // 8)
+        shapes = {"cbf_y": s8, "cbf_u": s8, "cbf_v": s8, "cbf4_y": s4,
+                  "ts4_y": s4, "ts8_u": s8, "ts8_v": s8}
+        res = dict(out)
+        for comp in ("y", "u", "v"):
+            res[f"levels_{comp}"] = _unpack_levels_host(
+                out[f"levels_{comp}"], *(res.pop(f"esc_{k}_{comp}")
+                                         for k in ("pos", "val", "n")),
+                np.int16)
+        for k in _LITE_BOOL_KEYS:
+            if k in res:
+                res[k] = _unpack_bits_host(out[k], shapes[k])
+        return res
 
     # -- implementation ----------------------------------------------------
 
@@ -856,13 +1016,28 @@ class FrameEncoder:
         yp = pad_plane(y.to(torch.int32), g.hp, g.wp)
         up = pad_plane(u.to(torch.int32), g.hp // 2, g.wp // 2)
         vp = pad_plane(v.to(torch.int32), g.hp // 2, g.wp // 2)
+        def reconstruct(dec):
+            return self._reconstruct(yp, up, vp, dec["mode_slot"],
+                                     dec["cmode_slot"],
+                                     to_blocked(dec["tusz_frame"], 8),
+                                     dec["coded8"],
+                                     to_blocked(dec["mode4_frame"], 16),
+                                     qp_map)
+
         dec = self._decide(yp, up, vp, labels)
         self._clock.mark("stage1")
-        out = self._reconstruct(yp, up, vp, dec["mode_slot"],
-                                dec["cmode_slot"],
-                                to_blocked(dec["tusz_frame"], 8),
-                                dec["coded8"],
-                                to_blocked(dec["mode4_frame"], 16), qp_map)
+        if self.two_pass:
+            # Recon feedback (HM decides against reconstructed neighbors
+            # mid-search): stage 1 again with boundaries read from the
+            # first pass's pre-filter recon, the padded [hp, wp] planes
+            # the decoder will approximately see.
+            out1 = reconstruct(dec)
+            self._clock.mark("pass1_stage2")
+            dec = self._decide(yp, up, vp, labels,
+                               bsrc=(out1["recon_y"], out1["recon_u"],
+                                     out1["recon_v"]))
+            self._clock.mark("pass2_stage1")
+        out = reconstruct(dec)
         self._clock.mark("stage2")
         if qp_map is not None:
             out["qp_ctu"] = self._effective_qp_map(out, qp_map)
@@ -903,11 +1078,16 @@ class FrameEncoder:
         vals = torch.gather(des, 1, torch.clamp_min(last, 0))
         return torch.where(last >= 0, vals, self.qp).reshape(qp_map.shape)
 
-    def _decide(self, yp, up, vp, labels):
-        """Stage 1: all mode/partition/TU decisions for the batch."""
+    def _decide(self, yp, up, vp, labels, bsrc=None):
+        """Stage 1: all mode/partition/TU decisions for the batch. bsrc is
+        an optional (y, u, v) of planes the neighbor boundaries are read
+        from (two_pass); None reads them from the original planes."""
         g = self.geom
         b = yp.shape[0]
-        modes, costs = _dense_mode_decision(yp, g, self.qp)
+        rm = self.rate_model
+        by, bu, bv = bsrc if bsrc is not None else (None, None, None)
+        modes, costs = _dense_mode_decision(yp, g, self.qp, bsrc=by,
+                                            rate_model=rm)
 
         # Intra TU quadtree per CU size: each CU's full-TU cost becomes its
         # best-tree cost, and the per-slot leaf-size maps go to stage 2.
@@ -915,27 +1095,36 @@ class FrameEncoder:
         if self.tu_split:
             for n, cu_log2 in ((64, 6), (32, 5), (16, 4), (8, 3)):
                 t_cost, rd_full, tz[n] = _tu_tree_decision(
-                    yp, g, self.qp, cu_log2, modes[n])
+                    yp, g, self.qp, cu_log2, modes[n], bsrc=by,
+                    rate_model=rm)
                 costs[n] = costs[n] + (t_cost - rd_full)
 
         # PART_NxN vs PART_2Nx2N at depth 3: four 4x4 DST TUs with their
         # own modes vs one 8x8 TU.
         if self.nxn:
             c_nxn = _pool2(costs[4])
+            if rm == "ctx":
+                # the part_mode bin of max-depth CUs (bin 1 = 2Nx2N, 0 =
+                # NxN), init-state priced
+                pm_nxn, pm_2n = rate_ctx.part_mode_bits(self.qp)
+                lam_pm = rate.lambda_rd(self.qp)
+                c_nxn = c_nxn + lam_pm * pm_nxn
+                costs[8] = costs[8] + lam_pm * pm_2n
             nxn_map = c_nxn < costs[8]
             costs[8] = torch.minimum(costs[8], c_nxn)
         else:
             nxn_map = torch.zeros_like(costs[8], dtype=torch.bool)
 
-        csel, cmodes, ccosts = _dense_chroma_decision(up, vp, g, self.qp,
-                                                      self.qp_c, modes)
+        csel, cmodes, ccosts = _dense_chroma_decision(
+            up, vp, g, self.qp, self.qp_c, modes, bsrc_u=bu, bsrc_v=bv,
+            rate_model=rm)
 
         # Partition: the CNN labels, or the RD quadtree decision (costs[8]
         # already holds the NxN alternative; its chroma is ccosts[8]
         # either way, one 4x4 chroma TU per 8x8 luma CU).
         if self.search == "rd":
             labels = _rd_split_labels(
-                {n: costs[n] + ccosts[n] for n in ccosts}, self.qp)
+                {n: costs[n] + ccosts[n] for n in ccosts}, self.qp, rm)
         bh, bw = (torch.as_tensor(x, device=yp.device) for x in g.bh_bw)
         depth8, coded8 = ctu.derive_slot_depths(
             labels.reshape(b, g.rc, g.cc, 16), bh[None, :, None],

@@ -63,19 +63,29 @@ def test_tf32_is_off():
 
 
 @pytest.mark.parametrize("option", [{"rate_model": "ctx"},
-                                    {"two_pass": True}])
-def test_unported_options_raise(option):
-    with pytest.raises(NotImplementedError):
+                                    {"rate_model": "global"},
+                                    {"two_pass": True},
+                                    {"rate_model": "ctx", "two_pass": True}])
+def test_options_accepted(option):
+    enc = FrameEncoder(64, 128, 32, device="cpu", **option)
+    assert enc.rate_model == option.get("rate_model", "global")
+    assert enc.two_pass == option.get("two_pass", False)
+
+
+@pytest.mark.parametrize("option", [{"lite": True}, {"sharded": True}])
+def test_unknown_option_raises(option):
+    with pytest.raises(TypeError):
         FrameEncoder(64, 128, 32, device="cpu", **option)
 
 
-def test_unported_calls_raise():
+def test_bad_rate_model_raises():
+    with pytest.raises(ValueError, match="rate_model"):
+        FrameEncoder(64, 128, 32, device="cpu", rate_model="cabac")
+
+
+def test_encode_without_labels_raises():
     enc = FrameEncoder(64, 128, 32, device="cpu")
     y = np.zeros((1, 64, 128), np.uint8)
     c = np.zeros((1, 32, 64), np.uint8)
-    with pytest.raises(NotImplementedError):
-        enc.encode_fused_dispatch(None, y, c, c, lite=True)
-    with pytest.raises(NotImplementedError):
-        enc.collect({}, lite=True)
     with pytest.raises(ValueError):
         enc.encode(y, c, c)

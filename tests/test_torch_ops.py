@@ -168,7 +168,7 @@ def test_mode_rd_costs(log2):
         p, o, log2, 32, lam=lam, dst=(log2 == 2), rate_model="global"))(
             jnp.asarray(preds), jnp.asarray(orig))
     got = rd.mode_rd_costs(_t(preds), _t(orig), log2, 32, lam=lam,
-                           dst=(log2 == 2))
+                           dst=(log2 == 2), rate_model="global")
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
                                rtol=1e-5)
