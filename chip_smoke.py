@@ -42,10 +42,21 @@ Phases (each fails the run with a nonzero exit):
      warm, under each rate model (CUDA events);
  11. rate_model="ctx" with search="rd", and two_pass=True with
      search="rd", at 128x192 x 2 on the card and on the CPU port: the
-     streams must be byte-identical.
+     streams must be byte-identical;
+ 12. the training path: (a) python -m hevctpu_torch train, in process,
+     on phase 7's file (3 epochs from CKPT_DOMAIN.npz): K1 launched 4
+     times for the full-RD labels, the checkpoint's shapes, frame 0
+     encoded with the trained ConvNet2 and decoded with the hash SEI
+     verifying; (b) make_dataset of one 1920x1080 frame (2040 samples,
+     CNN labels) card = CPU, one step's float32 gradients against
+     float64, and ConvNet2 trained at batch 256 (2 epochs, 14 steps) on
+     the card and on the CPU port from the same initial weights, in
+     float32 and in float64, within the bounds below, the card run
+     twice; (c) the warm step time (CUDA events), samples/s and peak
+     memory beside the step's FP32 bound.
 Then one JSON line of the paths, one of the kernels (K1's launches summed
-over the paths 4, 5, 7, 8, 9, 10 and 11's card encodes), the card's name
-and power limit, and the last line {"ok": true, "device": {...}}.
+over the paths 4, 5, 7, 8, 9, 10, 11's card encodes and 12a), the card's
+name and power limit, and the last line {"ok": true, "device": {...}}.
 
 Run from the repository root: python3 chip_smoke.py
 It exits nonzero, printing no result, without CUDA or without the repo.
@@ -70,6 +81,22 @@ QP = 32
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_LANES = 132 * 64           # H100 SXM: 132 SMs x 64 INT32 lanes
 #                                  (Hopper white paper), at the SM clock
+FP32_LANES_PER_SM = 128          # Hopper SM: 128 FP32 lanes, one FMA
+#                                  (2 FLOP) each per clock
+# Card vs CPU training bounds (phase 12b). Float64 holds the algorithm:
+# the same weights to rounding. In float32, one step's gradients of
+# conv1 and conv64 (sums of 256 x 1024 or 4096 terms that nearly cancel)
+# are 1e-4 to 4e-4 off the float64 ones on either device
+# (tools/train_precision.py), and Adam turns a near-zero gradient of the
+# wrong sign into a full step, so over 14 steps one small tensor can part
+# far (conv1's bias by 0.13 relative L2 on the card) while the loss, the
+# accuracy and the weights as a whole agree: those are bounded, and the
+# per-tensor gaps printed.
+TRAIN_F32_GRAD = 1e-3            # one step's gradients vs float64, per tensor
+TRAIN_F32_LOSS = 1e-3            # relative, per epoch
+TRAIN_F32_MODEL = 1e-2           # relative L2 of all weights together
+TRAIN_F64 = 1e-13                # weights per tensor and loss, float64
+TRAIN_ACC = 2 / 2048             # absolute, per epoch
 
 
 def k1_rows(h: int, w: int, frames: int) -> dict:
@@ -584,6 +611,262 @@ def phase_options_card_vs_cpu(dev):
     return stats, stats["k1_launches"]
 
 
+def phase_train_cli(tmp: str, dev):
+    """python -m hevctpu_torch train on the 416x240 x 4 file, 3 epochs from
+    CKPT_DOMAIN.npz: K1 launched 4 times for the full-RD labels, the
+    written checkpoint has init_params()'s shapes, and frame 0 encoded with
+    the trained ConvNet2 decodes with the hash SEI verifying. Returns
+    (stats, K1 launches)."""
+    from hevctpu_torch.codec import decoder, headers
+    from hevctpu_torch.models import checkpoint, convnet2
+    from hevctpu_torch.ops import satd_fused
+    from hevctpu_torch.pipeline import yuv
+    from hevctpu_torch.pipeline.encoder import FrameEncoder
+    src, ckpt = os.path.join(tmp, "in416.yuv"), os.path.join(tmp,
+                                                              "trained.npz")
+    satd_fused.LAUNCHES = 0
+    text, wall = run_cli(["train", "-i", src, "--width", "416", "--height",
+                          "240", "-f", "4", "-q", str(QP), "--epochs", "3",
+                          "--init", os.path.join(ROOT, "CKPT_DOMAIN.npz"),
+                          "-o", ckpt], "cli_train")
+    launches = satd_fused.LAUNCHES
+    if launches != 4:
+        fail(f"cli_train: K1 launched {launches} times, not 4")
+    hist = [dict(epoch=int(e), loss=float(lo), acc=float(a)) for e, lo, a
+            in re.findall(r"epoch (\d+): loss ([0-9.]+) acc ([0-9.]+)", text)]
+    times = re.search(r"Train time: labels ([0-9.]+) s \| dataset ([0-9.]+) "
+                      r"ms \| train ([0-9.]+) s \((\d+) samples\)", text)
+    closing = re.search(r"trained 3 epochs, final acc [0-9.]+ -> .*", text)
+    if len(hist) != 3 or times is None or closing is None:
+        fail("cli_train: the report lacks the epochs, times or closing line")
+    if int(times[4]) != 4 * 28 * 4:
+        fail(f"cli_train: {times[4]} samples, not 448")
+    if not all(np.isfinite(h["loss"]) for h in hist):
+        fail(f"cli_train: non-finite loss in {hist}")
+    params, want = checkpoint.load(ckpt), convnet2.init_params()
+    for layer in want:
+        for k in want[layer]:
+            got = params[layer][k]
+            if got.shape != want[layer][k].shape or got.dtype != np.float32 \
+                    or not np.isfinite(got).all():
+                fail(f"cli_train: {layer}/{k} is {got.dtype} {got.shape}")
+    y, u, v = (p.astype(np.int32) for p in yuv.read_yuv420(src, 416, 240, 1))
+    satd_fused.LAUNCHES = 0
+    out = FrameEncoder(240, 416, QP, device=dev).encode_fused(
+        convnet2.load_model(params, dev), y, u, v)
+    if satd_fused.LAUNCHES != 4:
+        fail(f"cli_train: the trained model's encode launched K1 "
+             f"{satd_fused.LAUNCHES} times, not 4")
+    launches += satd_fused.LAUNCHES
+    stream = decoder.encode_stream(
+        headers.StreamConfig(width=416, height=240, qp=QP), [out])
+    dec = decoder.Decoder()
+    got = dec.decode(stream)
+    if len(got) != 1 or not dec.hashes_ok or not all(dec.hashes_ok):
+        fail("cli_train: the trained model's stream did not verify")
+    for plane, k in zip(got[0], ("recon_y", "recon_u", "recon_v")):
+        if not np.array_equal(plane, out[k][0]):
+            fail(f"cli_train: decoded {k} differs from the recon")
+    stats = dict(history=hist, samples=int(times[4]),
+                 labels_s=float(times[1]), dataset_ms=float(times[2]),
+                 train_s=float(times[3]), wall_s=wall, k1_launches=launches,
+                 frame0_bytes=len(stream),
+                 frame0_psnr_y=psnr_y(out["sse"], 240, 416))
+    log(f"  {closing[0]}")
+    log(f"  cli_train: {json.dumps(stats)}")
+    return stats, launches
+
+
+def weight_gap(a: dict, b: dict):
+    """(largest per-tensor ||a - b||_2 / ||b||_2, its tensor) of two
+    JAX-layout params dicts."""
+    return max((float(np.linalg.norm(a[lay][k].astype(np.float64)
+                                     - b[lay][k].astype(np.float64))
+                      / max(np.linalg.norm(b[lay][k].astype(np.float64)),
+                            1e-30)), f"{lay}.{k}")
+               for lay in b for k in b[lay])
+
+
+def model_gap(a: dict, b: dict) -> float:
+    """||a - b||_2 / ||b||_2 over every weight of two params dicts."""
+    d2 = p2 = 0.0
+    for lay in b:
+        for k in b[lay]:
+            y = b[lay][k].astype(np.float64)
+            d2 += float(np.sum((a[lay][k].astype(np.float64) - y) ** 2))
+            p2 += float(np.sum(y ** 2))
+    return (d2 / p2) ** 0.5
+
+
+def step_grads(data, device, dtype) -> dict:
+    """One step's gradients from init_params(0) on the first 256 samples,
+    as JAX-layout arrays (rounded to float32: 6e-8, far below the
+    bound)."""
+    import torch
+    from hevctpu_torch.models import convnet2, train
+    model = convnet2.load_model(convnet2.init_params(0), device).to(dtype)
+    with train.deterministic_convolutions():
+        train.loss_fn(model, data[0][:256].to(dtype), data[1][:256].to(dtype),
+                      data[2][:256]).backward()
+    g = convnet2.ConvNet2()
+    g.load_state_dict({k: p.grad.cpu().float()
+                       for k, p in model.named_parameters()})
+    del model
+    torch.cuda.synchronize()
+    return convnet2.params_to_jax(g)
+
+
+def history_gaps(a: list, b: list):
+    """(largest relative epoch-loss gap, largest absolute accuracy gap)."""
+    return (max(abs(x["loss"] - y["loss"]) / abs(y["loss"])
+                for x, y in zip(a, b)),
+            max(abs(x["acc"] - y["acc"]) for x, y in zip(a, b)))
+
+
+def train_flops() -> tuple:
+    """(forward, training-step) FLOP per sample of ConvNet2: 2 per
+    multiply-add. A step is the forward, every layer's weight gradient
+    (as many as its forward) and every input gradient but conv1's and
+    conv64's, whose inputs are the crops."""
+    convs = {"conv1": (32, 32, 16, 5 * 5 * 3),
+             "conv64": (64, 64, 16, 5 * 5 * 3),
+             "conv2": (16, 16, 64, 3 * 3 * 32),
+             "conv3": (8, 8, 128, 3 * 3 * 64)}
+    per = {k: 2 * h * w * co * taps for k, (h, w, co, taps) in convs.items()}
+    per.update(fc1=2 * 2048 * 256, fc2=2 * 256 * 64, fc3=2 * 64 * 16)
+    fwd = sum(per.values())
+    return fwd, 3 * fwd - per["conv1"] - per["conv64"]
+
+
+def phase_train_step(cnn, dev, sm_hz: float):
+    """ConvNet2 trained at batch 256 on make_dataset of one 1920x1080 frame
+    of clips.clip_sine (seed 0; labels from CKPT_DOMAIN.npz), 2 epochs:
+    card against CPU port in float32 and in float64, the card twice; then
+    the warm step time beside the FP32 bound."""
+    import torch
+    from hevctpu_torch.models import convnet2, train
+    from hevctpu_torch.pipeline import clips, labels
+    h, w, batch = 1080, 1920, 256
+    y, u, v = clips.clip_sine(1, h, w, seed=0)
+    lab = convnet2.predict_frame_labels(
+        cnn, *(torch.as_tensor(p.astype(np.int32)).to(dev) for p in (y, u, v)),
+        h, w)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = labels.make_dataset(y, u, v, lab, device=dev)
+    torch.cuda.synchronize()
+    dataset_ms = (time.perf_counter() - t0) * 1e3
+    ds_cpu = labels.make_dataset(y, u, v, lab.cpu(), device="cpu")
+    for name, a, b in zip(("x32", "x64", "digits"), ds, ds_cpu):
+        if not torch.equal(a.cpu(), b):
+            diff = (a.cpu().double() - b.double()).abs()
+            fail(f"make_dataset's {name} differs card vs CPU: "
+                 f"{int((diff > 0).sum())} elements, max {float(diff.max())}")
+    n = ds[0].shape[0]
+    steps = 2 * len(range(0, n - batch + 1, batch))
+    grads = {name: step_grads(data, d, dtype) for name, data, d, dtype in (
+        ("card", ds, dev, torch.float32), ("cpu", ds_cpu, "cpu",
+                                           torch.float32),
+        ("cpu64", ds_cpu, "cpu", torch.float64))}
+    grad_gaps = {}
+    for name in ("card", "cpu"):
+        grad_gaps[name] = weight_gap(grads[name], grads["cpu64"])
+        log(f"  one step's float32 gradients, {name} vs CPU float64: "
+            f"largest relative L2 {grad_gaps[name][0]:.3g} "
+            f"({grad_gaps[name][1]})")
+    if grad_gaps["card"][0] > TRAIN_F32_GRAD:
+        fail(f"the card's float32 gradients beyond {TRAIN_F32_GRAD} of the "
+             f"float64 ones: {grad_gaps['card']}")
+    runs, secs = {}, {}
+    for name, data, d, dtype in (
+            ("card", ds, dev, torch.float32),
+            ("card_again", ds, dev, torch.float32),
+            ("cpu", ds_cpu, "cpu", torch.float32),
+            ("card64", ds, dev, torch.float64),
+            ("cpu64", ds_cpu, "cpu", torch.float64)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[name] = train.train(data[0].to(dtype), data[1].to(dtype),
+                                 data[2], epochs=2, batch=batch, seed=0,
+                                 log=None, device=d)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    gaps = {}
+    for a, b in (("card", "cpu"), ("card64", "cpu64"), ("card", "cpu64"),
+                 ("cpu", "cpu64")):
+        wg, where = weight_gap(runs[a][0], runs[b][0])
+        mg = model_gap(runs[a][0], runs[b][0])
+        lg, ag = history_gaps(runs[a][1], runs[b][1])
+        gaps[f"{a}_vs_{b}"] = dict(weights=wg, tensor=where, model=mg,
+                                   loss=lg, acc=ag)
+        log(f"  {a} vs {b}: largest weight relative L2 {wg:.3g} ({where}), "
+            f"all weights {mg:.3g}, loss {lg:.3g} relative, accuracy "
+            f"{ag:.6f}")
+    f32, f64 = gaps["card_vs_cpu"], gaps["card64_vs_cpu64"]
+    if f32["model"] > TRAIN_F32_MODEL or f32["loss"] > TRAIN_F32_LOSS \
+            or f32["acc"] > TRAIN_ACC:
+        fail(f"float32 training card vs CPU beyond the bounds "
+             f"({TRAIN_F32_MODEL}, {TRAIN_F32_LOSS}, {TRAIN_ACC}): {f32}")
+    if f64["weights"] > TRAIN_F64 or f64["loss"] > TRAIN_F64 \
+            or f64["acc"] > TRAIN_ACC:
+        fail(f"float64 training card vs CPU beyond {TRAIN_F64}: {f64}")
+    first, again = runs["card"][0], runs["card_again"][0]
+    same = all(np.array_equal(first[k][p], again[k][p])
+               for k in first for p in first[k])
+    repeat_gap = 0.0 if same else weight_gap(again, first)[0]
+    log(f"  the card's two float32 runs: "
+        f"{'bit-identical' if same else f'differ, {repeat_gap:.3g}'}")
+    log(f"  card history {runs['card'][1]}; CPU history {runs['cpu'][1]}")
+
+    model = convnet2.load_model(convnet2.init_params(0), dev).train()
+    opt = train.make_optimizer(model, 1e-3)
+    order = torch.as_tensor(np.random.default_rng(0).permutation(n),
+                            device=dev)
+    batches = [order[i: i + batch] for i in range(0, n - batch + 1, batch)]
+    events = []
+    torch.cuda.reset_peak_memory_stats()
+    with train.deterministic_convolutions():
+        for k in range(3 + 20):
+            idx = batches[k % len(batches)]
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            train.train_step(model, opt, ds[0][idx], ds[1][idx], ds[2][idx])
+            e1.record()
+            events.append((e0, e1))
+        torch.cuda.synchronize()
+    step_ms = float(np.median([a.elapsed_time(b) for a, b in events[3:]]))
+    fwd, step = train_flops()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    fp32_flops = sms * FP32_LANES_PER_SM * 2 * sm_hz
+    n_params = sum(p.numel() for p in model.parameters())
+    # crops and digits read once; Adam reads params, m, v, writes all three
+    nbytes = batch * (32 * 32 * 3 + 64 * 64 * 3) * 4 + batch * 4 * 8 \
+        + 6 * n_params * 4
+    ops_ms = batch * step / fp32_flops * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    stats = dict(
+        samples=n, batch=batch, steps=steps, dataset_ms=dataset_ms,
+        train_s=secs, gaps=gaps, grad_gaps=grad_gaps,
+        card_repeat_bit_identical=same,
+        card_repeat_gap=repeat_gap, step_ms=step_ms,
+        samples_per_s=batch / step_ms * 1e3,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        fwd_mflop_per_sample=fwd / 1e6, step_mflop_per_sample=step / 1e6,
+        step_gflop=batch * step / 1e9, fp32_tflops=fp32_flops / 1e12,
+        bound_ms=bound_ms, bound_by="operations" if ops_ms >= bytes_ms
+        else "bytes", share_of_bound=bound_ms / step_ms,
+        history_card=runs["card"][1], history_cpu=runs["cpu"][1])
+    log(f"  train step, batch {batch}, warm: {step_ms:.4f} ms (median of "
+        f"20), {stats['samples_per_s']:.1f} samples/s, peak "
+        f"{stats['peak_mem_gib']:.3f} GiB; {step / 1e6:.2f} MFLOP a sample "
+        f"({stats['step_gflop']:.2f} GFLOP a step), bound {bound_ms:.4f} ms "
+        f"at {fp32_flops / 1e12:.2f} FP32 TFLOP/s ({sms} SMs), step at "
+        f"{stats['share_of_bound']:.3f} of the bound")
+    return stats
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -696,28 +979,35 @@ def main() -> int:
         log(f"  cli_rc: per-picture QPs {cli_rc['qps']}, coded CTU QPs "
             f"{ctu_qps}, achieved {cli_rc['kbps']} kbps (target 1000)")
 
-    log("phase 9: search=rd with a random per-CTU QP map, 128x192 x 2, "
-        "card vs CPU port")
-    cuqp = phase_cuqp_card_vs_cpu(dev)
-    launches += cuqp["k1_launches"]
+        log("phase 9: search=rd with a random per-CTU QP map, 128x192 x 2, "
+            "card vs CPU port")
+        cuqp = phase_cuqp_card_vs_cpu(dev)
+        launches += cuqp["k1_launches"]
 
-    log("phase 10: serving options, 416x240 x 4 frames, CNN labels")
-    torch.cuda.reset_peak_memory_stats()
-    ctx, _, _ = run_path(240, 416, 4, cnn, dev, "ctx_416x240x4",
-                         rate_model="ctx")
-    launches += ctx["k1_launches"]
-    torch.cuda.reset_peak_memory_stats()
-    two, _, _ = run_path(240, 416, 4, cnn, dev, "two_pass_416x240x4",
-                         want_launches=8, two_pass=True)
-    launches += two["k1_launches"]
-    lite, n = phase_lite(cnn, dev)
-    launches += n
-    stage1 = stage1_warm_ms(cnn, dev)
+        log("phase 10: serving options, 416x240 x 4 frames, CNN labels")
+        torch.cuda.reset_peak_memory_stats()
+        ctx, _, _ = run_path(240, 416, 4, cnn, dev, "ctx_416x240x4",
+                             rate_model="ctx")
+        launches += ctx["k1_launches"]
+        torch.cuda.reset_peak_memory_stats()
+        two, _, _ = run_path(240, 416, 4, cnn, dev, "two_pass_416x240x4",
+                             want_launches=8, two_pass=True)
+        launches += two["k1_launches"]
+        lite, n = phase_lite(cnn, dev)
+        launches += n
+        stage1 = stage1_warm_ms(cnn, dev)
 
-    log("phase 11: ctx and two_pass with search=rd, 128x192 x 2, card vs "
-        "CPU port")
-    opts, n = phase_options_card_vs_cpu(dev)
-    launches += n
+        log("phase 11: ctx and two_pass with search=rd, 128x192 x 2, card "
+            "vs CPU port")
+        opts, n = phase_options_card_vs_cpu(dev)
+        launches += n
+
+        log("phase 12: training; (a) CLI train on the 416x240 x 4 file")
+        train_cli, n = phase_train_cli(tmp, dev)
+        launches += n
+        log("  (b, c) ConvNet2 at batch 256 on one 1920x1080 frame, card vs "
+            "CPU port, and the warm step")
+        train_step = phase_train_step(cnn, dev, sm_hz)
 
     unchecked = sorted(K1_LAUNCHED - k1["checked"])
     if unchecked:
@@ -742,7 +1032,9 @@ def main() -> int:
                                 "two_pass_416x240x4": two,
                                 "lite_416x240x4": lite,
                                 "stage1_warm_416x240x4": stage1,
-                                "options_128x192x2": opts},
+                                "options_128x192x2": opts,
+                                "train_416x240x4": train_cli,
+                                "train_step_1080p": train_step},
                       "k1_build_s": build_s, "k1": k1["shapes"],
                       "sm_clock_hz": sm_hz}))
     print(json.dumps({"kernels": kernels}))

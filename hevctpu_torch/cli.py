@@ -1,5 +1,5 @@
-"""Command-line interface: encode / decode / bdrate / genlabels / bytecount
-(port of hevctpu/cli.py).
+"""Command-line interface: encode / decode / bdrate / genlabels / train /
+bytecount (port of hevctpu/cli.py).
 
 The reference's app shell (TAppEncoder encmain.cpp + TAppEncCfg +
 gen_frames/use_model orchestration, and TAppDecoder), with the CNN depth
@@ -12,10 +12,12 @@ ffmpeg-JPEG + txt-file handshake.
       -q 32 -b out.bin [--recon rec.yuv] [--search rd] [--device cpu]
   python -m hevctpu_torch decode -b out.bin -o dec.yuv
   python -m hevctpu_torch bdrate anchor.csv test.csv
+  python -m hevctpu_torch train -i in.yuv --width 416 --height 240 -f 4 \\
+      --epochs 3 [--init CKPT_DOMAIN.npz] -o convnet2.npz
 
-Encoding runs on the card (--device cuda, the default) and raises without
-CUDA; --device cpu runs the plain PyTorch path. The JAX package's `train`
-command is not ported yet.
+Encoding, label generation and training run on the card (--device cuda,
+the default) and raise without CUDA; --device cpu runs the plain PyTorch
+path.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import numpy as np
 
 def _add_device(p):
     p.add_argument("--device", default="cuda",
-                   help="torch device to encode on (default cuda; raises "
+                   help="torch device to run on (default cuda; raises "
                         "without CUDA; cpu runs the plain PyTorch path)")
 
 
@@ -94,6 +96,22 @@ def _add_genlabels(sub):
     p.add_argument("-f", "--frames", type=int, default=0)
     p.add_argument("-q", "--qp", type=int, default=32)
     p.add_argument("-o", "--output", default="PartitionInfo.txt")
+    _add_device(p)
+
+
+def _add_train(sub):
+    p = sub.add_parser("train", help="train ConvNet2 on RD-search labels "
+                       "from a YUV clip")
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("--width", type=int, required=True)
+    p.add_argument("--height", type=int, required=True)
+    p.add_argument("-f", "--frames", type=int, default=0)
+    p.add_argument("-q", "--qp", type=int, default=32)
+    p.add_argument("--epochs", type=int, default=5)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--init", help="checkpoint to fine-tune from "
+                   "(.npz or torch .pt)")
+    p.add_argument("-o", "--output", default="convnet2.npz")
     _add_device(p)
 
 
@@ -314,6 +332,45 @@ def cmd_genlabels(args) -> int:
     return 0
 
 
+def cmd_train(args) -> int:
+    import torch
+
+    from hevctpu_torch import get_device
+    from hevctpu_torch.models import checkpoint, convnet2, train
+    from hevctpu_torch.pipeline import extract, labels
+
+    device = get_device(args.device)
+    init = None
+    if args.init:
+        if args.init.endswith(".pt"):
+            init = convnet2.load_torch_params(args.init)
+        elif args.init.endswith(".npz"):
+            init = checkpoint.load(args.init)
+        else:
+            print(f"--init {args.init}: the port reads .npz and torch .pt "
+                  f"checkpoints only", file=sys.stderr)
+            return 2
+    y, u, v = extract.load_clip(args.input, args.width, args.height,
+                                args.frames)
+    t0 = time.perf_counter()
+    lab = labels.rd_ground_truth(y, u, v, args.qp, device=device)
+    t1 = time.perf_counter()
+    x32, x64, digits = labels.make_dataset(y, u, v, lab, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t2 = time.perf_counter()
+    params, hist = train.train(x32, x64, digits, params=init,
+                               epochs=args.epochs, lr=args.lr, device=device)
+    t3 = time.perf_counter()
+    checkpoint.save(args.output, params)
+    print(f"Train time: labels {t1 - t0:.3f} s | dataset "
+          f"{(t2 - t1) * 1e3:.3f} ms | train {t3 - t2:.3f} s "
+          f"({x32.shape[0]} samples)")
+    print(f"trained {len(hist)} epochs, final acc "
+          f"{hist[-1]['acc']:.3f} -> {args.output}")
+    return 0
+
+
 def cmd_bytecount(args) -> int:
     from hevctpu_torch import utils
 
@@ -334,18 +391,18 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="hevctpu_torch",
         description="The PyTorch/CUDA port of hevctpu's HEVC All-Intra "
-                    "encoder. The JAX package's `train` command is not "
-                    "ported yet (it comes with the training slice).")
+                    "encoder and its ConvNet2 trainer.")
     sub = ap.add_subparsers(dest="cmd", required=True)
     _add_encode(sub)
     _add_decode(sub)
     _add_bdrate(sub)
     _add_genlabels(sub)
+    _add_train(sub)
     _add_bytecount(sub)
     args = ap.parse_args(argv)
     return {"encode": cmd_encode, "decode": cmd_decode,
             "bdrate": cmd_bdrate, "genlabels": cmd_genlabels,
-            "bytecount": cmd_bytecount}[args.cmd](args)
+            "train": cmd_train, "bytecount": cmd_bytecount}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -6,8 +6,10 @@ to 4 depth labels (one per 16x16 quarter); batch-norm is already folded
 into the convolutions in the parameter files. The public functions keep
 the JAX package's layouts (NHWC crops, [..., 16] logits); the module
 converts to NCHW inside. Weights come across from the JAX params layout
-with params_from_jax; the reference's torch checkpoint (a state dict with
-batch-norm layers) comes to that layout with load_torch_params.
+with params_from_jax and go back to it with params_to_jax; the
+reference's torch checkpoint (a state dict with batch-norm layers) comes
+to that layout with load_torch_params, and init_params draws the JAX
+package's initial weights for training from scratch.
 """
 
 from __future__ import annotations
@@ -70,6 +72,27 @@ def load_torch_params(pt_path: str) -> dict:
     return params
 
 
+def init_params(seed: int = 0) -> dict:
+    """Random JAX-layout params with the checkpoint's shapes (He-scaled
+    normal weights, zero biases), drawn in the JAX package's order from
+    np.random.default_rng(seed): bit-identical to its init_params."""
+    rng = np.random.default_rng(seed)
+
+    def conv(kh, kw, ci, co):
+        std = float(np.sqrt(2.0 / (kh * kw * ci)))
+        return {"w": rng.normal(0, std, (kh, kw, ci, co)).astype(np.float32),
+                "b": np.zeros(co, np.float32)}
+
+    def lin(ci, co):
+        std = float(np.sqrt(2.0 / ci))
+        return {"w": rng.normal(0, std, (ci, co)).astype(np.float32),
+                "b": np.zeros(co, np.float32)}
+
+    return {"conv1": conv(5, 5, 3, 16), "conv64": conv(5, 5, 3, 16),
+            "conv2": conv(3, 3, 32, 64), "conv3": conv(3, 3, 64, 128),
+            "fc1": lin(2048, 256), "fc2": lin(256, 64), "fc3": lin(64, 16)}
+
+
 class ConvNet2(nn.Module):
     """x32 [B,32,32,3], x64 [B,64,64,3] in [0,1] -> logits [B, 16]."""
 
@@ -114,6 +137,24 @@ def params_from_jax(params: dict) -> dict:
         sd[f"{name}.bias"] = torch.from_numpy(
             np.asarray(params[name]["b"], np.float32).copy())
     return sd
+
+
+def params_to_jax(model: ConvNet2) -> dict:
+    """The inverse of params_from_jax: a ConvNet2's weights as JAX-layout
+    numpy params in the model's float type (HWIO conv kernels, [in, out]
+    linear weights, fc1's input kept in HWC order), the layout
+    checkpoint.save writes."""
+    sd = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    params = {}
+    for name in ("conv1", "conv64", "conv2", "conv3"):
+        params[name] = {
+            "w": np.ascontiguousarray(
+                sd[f"{name}.weight"].transpose(2, 3, 1, 0)),    # HWIO
+            "b": sd[f"{name}.bias"].copy()}
+    for name in ("fc1", "fc2", "fc3"):
+        params[name] = {"w": np.ascontiguousarray(sd[f"{name}.weight"].T),
+                        "b": sd[f"{name}.bias"].copy()}
+    return params
 
 
 def load_model(params: dict, device) -> ConvNet2:
@@ -177,7 +218,11 @@ def yuv_to_rgb01(y: torch.Tensor, u: torch.Tensor,
     g = c - 0.392 * d - 0.813 * e
     b = c + 2.017 * d
     rgb = torch.stack([r, g, b], dim=-1)
-    return torch.clamp(torch.round(rgb), 0, 255) / 255.0
+    # divide by a tensor on the device: CUDA turns division by a CPU
+    # scalar into a product with its reciprocal, which can round the last
+    # bit otherwise than the CPU's (and the JAX package's) division
+    return torch.clamp(torch.round(rgb), 0, 255) / torch.tensor(
+        255.0, device=rgb.device)
 
 
 def frame_to_crops(rgb: torch.Tensor, h: int, w: int):

@@ -1,11 +1,13 @@
 """The port's command line, `python -m hevctpu_torch`, with --device cpu on
 a 64x64 x 2 clip: encode -> decode round trips (full-RD search, fixed
 depth with the shipped codec cfg, rate control, adaptive QP), genlabels,
-bytecount, bdrate, the layered config, and one byte-identity check of a
---search rd stream against the JAX package's CLI (one JAX compile)."""
+bytecount, bdrate, the layered config, one byte-identity check of a
+--search rd stream against the JAX package's CLI, and train against the
+JAX CLI's on a 64x128 x 2 clip (two JAX encoder compiles in all)."""
 
 import dataclasses
 import os
+import re
 
 import numpy as np
 import pytest
@@ -13,8 +15,10 @@ import torch
 
 from hevctpu import cli as jcli
 from hevctpu import config as jconfig
+from hevctpu.models import checkpoint as jckpt
 from hevctpu_torch import cli, config
 from hevctpu_torch.codec import decoder
+from hevctpu_torch.models import checkpoint
 from hevctpu_torch.pipeline import yuv
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -162,16 +166,66 @@ def _bad(tmp_path):
     return str(p)
 
 
-def test_device_rule_and_unported_train(clip, tmp_path):
+def test_device_rule_covers_train(clip, tmp_path):
     path, _ = clip
     argv = ["encode", "-i", path, "--width", str(W), "--height", str(H),
             "-b", str(tmp_path / "x.bin"), "--fixed-depth", "0"]
+    train = ["train", "-i", path, "--width", str(W), "--height", str(H),
+             "-o", str(tmp_path / "x.npz")]
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            cli.main(argv)
-    with pytest.raises(SystemExit) as e:
-        cli.main(["train", "-i", path, "--width", "64", "--height", "64"])
-    assert e.value.code == 2
+        for a in (argv, train):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                cli.main(a)
+    assert not (tmp_path / "x.npz").exists()
+    assert cli.main(train + ["--device", "cpu", "--init",
+                             str(tmp_path)]) == 2
+
+
+@pytest.fixture(scope="module")
+def wide_clip(tmp_path_factory):
+    """64x128 x 2 frames: 16 training samples, fewer than a batch."""
+    rng = np.random.default_rng(8)
+    n, h, w = 2, 64, 128
+    yy, xx = np.mgrid[0:h, 0:w]
+    y = np.stack([(128 + 60 * np.sin(yy / 5 + i) * np.cos(xx / 13)
+                   + rng.normal(0, 6, (h, w))).clip(0, 255)
+                  for i in range(n)]).astype(np.uint8)
+    u = rng.integers(90, 170, (n, h // 2, w // 2)).astype(np.uint8)
+    v = rng.integers(100, 160, (n, h // 2, w // 2)).astype(np.uint8)
+    p = tmp_path_factory.mktemp("wide") / "wide.yuv"
+    yuv.write_yuv420(str(p), y, u, v)
+    return str(p)
+
+
+def test_train_matches_reference_cli(wide_clip, tmp_path, capsys):
+    """train --epochs 2 on the port (CPU) and on the JAX CLI: the written
+    npz files agree tensor by tensor (relative L2 1e-4: two Adam steps on
+    one batch keep float32 drift at rounding level), whichever package
+    loads them, and the printed final accuracy is the same."""
+    args = ["train", "-i", wide_clip, "--width", "128", "--height", "64",
+            "--epochs", "2"]
+    got, want = str(tmp_path / "port.npz"), str(tmp_path / "ref.npz")
+    assert cli.main(args + ["-o", got, "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "Train time: labels" in out and "(16 samples)" in out
+    assert jcli.main(args + ["-o", want]) == 0
+    ref_out = capsys.readouterr().out
+
+    def acc(text):
+        return re.search(r"trained 2 epochs, final acc ([0-9.]+) -> ",
+                         text)[1]
+
+    assert acc(out) == acc(ref_out)
+    ref = jckpt.load(want)
+    for loaded in (checkpoint.load(got), jckpt.load(got)):
+        assert set(loaded) == set(ref)
+        for layer in ref:
+            for k in ref[layer]:
+                a = np.asarray(loaded[layer][k], np.float64)
+                b = np.asarray(ref[layer][k], np.float64)
+                assert a.shape == b.shape
+                assert (np.linalg.norm(a - b)
+                        <= 1e-4 * np.linalg.norm(b)), (layer, k)
 
 
 def test_rd_stream_equals_reference_cli(clip, tmp_path):
