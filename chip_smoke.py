@@ -53,10 +53,26 @@ Phases (each fails the run with a nonzero exit):
      the card and on the CPU port from the same initial weights, in
      float32 and in float64, within the bounds below, the card run
      twice; (c) the warm step time (CUDA events), samples/s and peak
-     memory beside the step's FP32 bound.
+     memory beside the step's FP32 bound;
+ 13. the multi-device encoder (hevctpu_torch.parallel.ShardedEncoder), in
+     worlds of ranks spawned from this process, each rank computing on
+     the one card: (a) two gloo ranks, mesh (frame=2, tile=1), phase 4's
+     416x240 x 8 batch, every key equal to phase 4's dict and the stream
+     byte-identical; (b) two gloo ranks, mesh (frame=1, tile=2), phase
+     5's 1920x1080 frame (15 CTU columns a tile, stage 2 per tile with
+     halo exchanges), equal to phase 5's likewise; (c) one NCCL rank,
+     mesh (1, 1), 128x192 x 2, equal to the single-process encode. Each
+     rank launches K1 4 times at shapes phase 2 held; its stage ms and
+     the transport are printed. Two ranks share the card, so their times
+     are no speedup;
+ 14. hevctpu_torch.ops.inter (motion compensation, motion search, MV
+     bits, weighted prediction, merge candidates) on a 416x240 pair of
+     clip_sine frames on the card against the CPU port: integers bit for
+     bit, wp_acdc's AC within a relative 1e-6.
 Then one JSON line of the paths, one of the kernels (K1's launches summed
-over the paths 4, 5, 7, 8, 9, 10, 11's card encodes and 12a), the card's
-name and power limit, and the last line {"ok": true, "device": {...}}.
+over the paths 4, 5, 7, 8, 9, 10, 11's card encodes, 12a and 13's
+ranks), the card's name and power limit, and the last line
+{"ok": true, "device": {...}}.
 
 Run from the repository root: python3 chip_smoke.py
 It exits nonzero, printing no result, without CUDA or without the repo.
@@ -65,14 +81,17 @@ It exits nonzero, printing no result, without CUDA or without the repo.
 from __future__ import annotations
 
 import contextlib
+import datetime
 import io
 import json
 import os
+import queue
 import re
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 import numpy as np
 
@@ -97,6 +116,7 @@ TRAIN_F32_LOSS = 1e-3            # relative, per epoch
 TRAIN_F32_MODEL = 1e-2           # relative L2 of all weights together
 TRAIN_F64 = 1e-13                # weights per tensor and loss, float64
 TRAIN_ACC = 2 / 2048             # absolute, per epoch
+INTER_AC_RTOL = 1e-6             # wp_acdc's float32 AC, card vs CPU
 
 
 def k1_rows(h: int, w: int, frames: int) -> dict:
@@ -867,6 +887,200 @@ def phase_train_step(cnn, dev, sm_hz: float):
     return stats
 
 
+def _rank_main(rank, world, backend, init, job, results):
+    """One rank of a phase-13 world (spawned): the ShardedEncoder encode of
+    job's clip on the card, CNN labels from CKPT_DOMAIN.npz; puts (rank,
+    result) or (rank, traceback) on results."""
+    import torch
+    import torch.distributed as dist
+    try:
+        torch.cuda.set_device(0)
+        from hevctpu_torch.models import checkpoint
+        from hevctpu_torch.ops import satd_fused
+        from hevctpu_torch.parallel import ShardedEncoder, make_mesh
+        from hevctpu_torch.pipeline import clips
+        record_k1_shapes()
+        dist.init_process_group(backend, init_method=init, rank=rank,
+                                world_size=world,
+                                timeout=datetime.timedelta(seconds=300))
+        mesh = make_mesh(tile=job["tile"])
+        h, w, frames = job["h"], job["w"], job["frames"]
+        y, u, v = (cuqp_clip(h, w) if job["clip"] == "cuqp"
+                   else clips.clip_sine(frames, h, w, seed=0))
+        sh = ShardedEncoder(h, w, QP, mesh, cnn_params=checkpoint.load(
+            os.path.join(ROOT, "CKPT_DOMAIN.npz")))
+        satd_fused.LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = sh.encode(y, u, v)
+        wall = time.perf_counter() - t0
+        launches = satd_fused.LAUNCHES
+        res = dict(out=out, wall_s=wall, k1_launches=launches,
+                   k1_shapes=sorted(K1_LAUNCHED), mesh=mesh.shape,
+                   coords=(mesh.frame_index, mesh.tile_index),
+                   backend=dist.get_backend(),
+                   device=str(sh.enc.device),
+                   stage_ms={k: round(x, 3)
+                             for k, x in sh.enc.stage_ms().items()})
+        dist.destroy_process_group()
+        results.put((rank, res))
+    except Exception:                     # reported to the parent
+        results.put((rank, traceback.format_exc()))
+
+
+def run_world(label, world, backend, job, timeout_s):
+    """Spawn a world of ranks running _rank_main; returns their results by
+    rank. A failed rank, or a world that outlives timeout_s, fails the
+    script after every rank is killed."""
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        init = "file://" + os.path.join(tmp, "rendezvous")
+        procs = [ctx.Process(target=_rank_main, daemon=True,
+                             args=(r, world, backend, init, job, results))
+                 for r in range(world)]
+        deadline = time.perf_counter() + timeout_s
+        got, err = {}, None
+        try:
+            for p in procs:
+                p.start()
+            while len(got) < world and err is None:
+                try:
+                    rank, res = results.get(
+                        timeout=max(0.1, deadline - time.perf_counter()))
+                except queue.Empty:
+                    err = (f"{label}: no result from ranks "
+                           f"{sorted(set(range(world)) - set(got))} within "
+                           f"{timeout_s} s")
+                    continue
+                if isinstance(res, str):
+                    err = f"{label}: rank {rank} failed:\n{res}"
+                got[rank] = res
+        finally:
+            started = [p for p in procs if p.pid is not None]
+            for p in started:
+                p.join(timeout=max(0.1, deadline - time.perf_counter()))
+            for p in started:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+    if err:
+        fail(err)
+    return got
+
+
+def phase_sharded(label, world, backend, job, want, want_stream, cfg,
+                  timeout_s):
+    """One phase-13 world: every rank's dict must equal want key for key
+    and encode to want_stream; each rank launches K1 4 times. Returns
+    (stats, the ranks' K1 launches)."""
+    from hevctpu_torch.codec import decoder
+    t0 = time.perf_counter()
+    ranks = run_world(label, world, backend, job, timeout_s)
+    wall = time.perf_counter() - t0
+    launches = 0
+    per_rank = {}
+    for rank, res in sorted(ranks.items()):
+        out = res.pop("out")
+        if set(out) != set(want):
+            fail(f"{label} rank {rank}: keys {sorted(set(out) ^ set(want))} "
+                 f"differ")
+        for k in want:
+            a, b = np.asarray(out[k]), np.asarray(want[k])
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                fail(f"{label} rank {rank}: {k} differs from the "
+                     f"single-process encode "
+                     f"({first_difference({k: a}, {k: b})})")
+        stream = decoder.encode_stream(cfg, [out])
+        if stream != want_stream:
+            fail(f"{label} rank {rank}: the stream differs")
+        if res["k1_launches"] != 4:
+            fail(f"{label} rank {rank}: K1 launched {res['k1_launches']} "
+                 f"times, not 4")
+        launches += res["k1_launches"]
+        K1_LAUNCHED.update(tuple(x) for x in res.pop("k1_shapes"))
+        per_rank[rank] = res
+    backends = {r["backend"] for r in per_rank.values()}
+    stats = dict(world=world, transport=sorted(backends), frames=job["frames"],
+                 size=f"{job['w']}x{job['h']}", mesh=per_rank[0]["mesh"],
+                 bytes=len(want_stream), world_wall_s=wall,
+                 k1_launches=launches, ranks=per_rank)
+    log(f"  {label}: transport {'/'.join(sorted(backends))}, {world} "
+        f"rank(s) on one card, mesh {per_rank[0]['mesh']}: every key equal "
+        f"and the stream byte-identical ({len(want_stream)} bytes) on every "
+        f"rank; {json.dumps(stats)}")
+    return stats, launches
+
+
+def phase_inter(dev):
+    """hevctpu_torch.ops.inter on the card against the CPU port, on a
+    416x240 pair of clip_sine frames (frame 1 predicted from frame 0)."""
+    import torch
+    from hevctpu_torch.ops import inter
+    from hevctpu_torch.pipeline import clips
+    y, u, _ = clips.clip_sine(2, 240, 416, seed=0)
+    rng = np.random.default_rng(0)
+    mv8 = rng.integers(-24, 25, (1, 30, 52, 2)).astype(np.int32)
+    mv4 = rng.integers(-24, 25, (1, 30, 52, 2)).astype(np.int32)
+    cur, ref = y[1:], y[:1]
+    p14 = (ref << 6) - (1 << 13)
+    mvf = rng.integers(-2, 3, (1, 30, 52, 2)).astype(np.int32) * 4
+    fade = np.clip((ref * 0.7).astype(np.int32) + 10, 0, 255)
+    wts = inter.wp_estimate(*inter.wp_acdc(torch.as_tensor(fade)),
+                            *inter.wp_acdc(torch.as_tensor(ref)))
+    cases = {
+        "mc_luma_grid": (inter.mc_luma_grid, (ref, mv8, 8)),
+        "mc_chroma_grid": (inter.mc_chroma_grid, (u[:1], mv4, 4)),
+        "bi_average": (inter.bi_average, (p14, (cur << 6) - (1 << 13))),
+        "sad_full_search": (inter.sad_full_search, (cur, ref, 8, 4)),
+        "sad_full_search_flat": (inter.sad_full_search,
+                                 (np.full_like(cur, 90), np.full_like(ref, 90),
+                                  8, 2)),
+        "frac_refine": (inter.frac_refine, (cur, ref, mv8 & ~3, 8)),
+        "amvp_candidates": (inter.amvp_candidates, (mvf,)),
+        "mvd_bits": (inter.mvd_bits, (mv8 * 37,)),
+        "wp_apply": (inter.wp_apply, (p14, 80, -3)),
+        "wp_apply_bi": (inter.wp_apply_bi, (p14, p14[:, ::-1].copy(), 70, 2,
+                                            58, -1)),
+        "wp_select": (inter.wp_select, (fade, ref, int(wts[0][0]),
+                                        int(wts[1][0]))),
+        "merge_candidates": (inter.merge_candidates, (mvf,)),
+        "wp_acdc": (inter.wp_acdc, (np.concatenate([cur, ref]),)),
+    }
+    res = {}
+    for name, (fn, args) in cases.items():
+        outs = []
+        for d in (dev, torch.device("cpu")):
+            got = fn(*(torch.as_tensor(a).to(d) if isinstance(a, np.ndarray)
+                       else a for a in args))
+            outs.append([_np_of(t) for t in
+                         (got if isinstance(got, tuple) else (got,))])
+        card, cpu = outs
+        for i, (a, b) in enumerate(zip(card, cpu)):
+            if a.dtype != b.dtype or a.shape != b.shape:
+                fail(f"inter {name}[{i}]: {a.dtype} {a.shape} on the card, "
+                     f"{b.dtype} {b.shape} on the CPU")
+            if name == "wp_acdc" and i == 1:
+                rel = float(np.max(np.abs(a.astype(np.float64) - b)
+                                   / np.maximum(np.abs(b), 1)))
+                if rel > INTER_AC_RTOL:
+                    fail(f"inter wp_acdc AC card vs CPU {rel} > "
+                         f"{INTER_AC_RTOL}")
+            elif not np.array_equal(a, b):
+                fail(f"inter {name}[{i}] differs card vs CPU at "
+                     f"{np.argwhere(a != b)[:4].tolist()}")
+        res[name] = [list(a.shape) for a in card]
+    log(f"  inter: {len(cases)} functions' outputs card = CPU "
+        f"(integers bit for bit, wp_acdc AC within {INTER_AC_RTOL}); "
+        f"wp_estimate on the moments: weights {wts[0].tolist()}, offsets "
+        f"{wts[1].tolist()}")
+    return res
+
+
+def _np_of(t):
+    return t.cpu().numpy() if hasattr(t, "cpu") else np.asarray(t)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -925,12 +1139,12 @@ def main() -> int:
     log("phase 4: main path, 416x240 x 8 frames")
     launches = 0
     torch.cuda.reset_peak_memory_stats()
-    sd, _, _ = run_path(240, 416, 8, cnn, dev, "416x240")
+    sd, out_sd, stream_sd = run_path(240, 416, 8, cnn, dev, "416x240")
     launches += sd["k1_launches"]
 
     log("phase 5: main path, 1920x1080 x 1 frame")
     torch.cuda.reset_peak_memory_stats()
-    hd, _, _ = run_path(1080, 1920, 1, cnn, dev, "1920x1080")
+    hd, out_hd, stream_hd = run_path(1080, 1920, 1, cnn, dev, "1920x1080")
     launches += hd["k1_launches"]
 
     log("phase 6: one 416x240 frame, card vs CPU port")
@@ -1009,6 +1223,32 @@ def main() -> int:
             "CPU port, and the warm step")
         train_step = phase_train_step(cnn, dev, sm_hz)
 
+    log("phase 13: the multi-device encoder, ranks spawned on the one card")
+    sharded = {}
+    for key, world, backend, job, want, stream, timeout_s in (
+            ("13a_416x240x8_frame2", 2, "gloo",
+             dict(h=240, w=416, frames=8, tile=1, clip="sine"), out_sd,
+             stream_sd, 400),
+            ("13b_1920x1080_tile2", 2, "gloo",
+             dict(h=1080, w=1920, frames=1, tile=2, clip="sine"), out_hd,
+             stream_hd, 500)):
+        sharded[key], n = phase_sharded(
+            key, world, backend, job, want, stream,
+            headers.StreamConfig(width=job["w"], height=job["h"], qp=QP,
+                                 hash_type="checksum"), timeout_s)
+        launches += n
+    cfg_c = headers.StreamConfig(width=192, height=128, qp=QP)
+    want_c = FrameEncoder(128, 192, QP, device=dev).encode_fused(
+        cnn, *cuqp_clip())
+    sharded["13c_128x192x2_nccl"], n = phase_sharded(
+        "13c_128x192x2_nccl", 1, "nccl",
+        dict(h=128, w=192, frames=2, tile=None, clip="cuqp"), want_c,
+        decoder.encode_stream(cfg_c, [want_c]), cfg_c, 200)
+    launches += n
+
+    log("phase 14: ops/inter.py on the card against the CPU port (416x240)")
+    inter_res = phase_inter(dev)
+
     unchecked = sorted(K1_LAUNCHED - k1["checked"])
     if unchecked:
         fail(f"K1 launched at (n, M, luma) {unchecked}, never held against "
@@ -1034,7 +1274,9 @@ def main() -> int:
                                 "stage1_warm_416x240x4": stage1,
                                 "options_128x192x2": opts,
                                 "train_416x240x4": train_cli,
-                                "train_step_1080p": train_step},
+                                "train_step_1080p": train_step,
+                                "sharded": sharded,
+                                "inter_416x240": inter_res},
                       "k1_build_s": build_s, "k1": k1["shapes"],
                       "sm_clock_hz": sm_hz}))
     print(json.dumps({"kernels": kernels}))

@@ -25,7 +25,9 @@ The options follow the JAX package: the full-RD quadtree search
 coding-tool switches, the context rate model (rate_model="ctx"), recon-
 feedback decisions (two_pass: stage 1 again on the first pass's recon
 boundaries) and the lite transfer (lite=True: the output dict packed on
-the device, unpacked by collect).
+the device, unpacked by collect). Under a parallel.Mesh of more than one
+tile (parallel.ShardedEncoder), stage 2 runs on this rank's tile of CTU
+columns, with halo exchanges between the tiles after every diagonal.
 """
 
 from __future__ import annotations
@@ -72,25 +74,44 @@ class Geometry:
     @functools.cached_property
     def wavefront(self):
         """(act_r, act_c, act_mask) [D, A]: CTUs active on each diagonal
-        d = 2r + c (the WPP dependency order)."""
-        rc, cc = self.rc, self.cc
-        diags = [[(r, c) for r in range(rc) for c in range(cc)
-                  if 2 * r + c == d] for d in range(2 * (rc - 1) + cc)]
-        a = max(len(x) for x in diags)
-        d = len(diags)
-        act_r = np.zeros((d, a), dtype=np.int32)
-        act_c = np.zeros((d, a), dtype=np.int32)
-        act_m = np.zeros((d, a), dtype=bool)
-        for i, cells in enumerate(diags):
-            for j, (r, c) in enumerate(cells):
-                act_r[i, j], act_c[i, j], act_m[i, j] = r, c, True
-        return act_r, act_c, act_m
+        d = 2r + c (the WPP dependency order); wavefront_tiled's one
+        tile."""
+        return tuple(t[0] for t in self.wavefront_tiled(1))
 
     @functools.cached_property
     def bh_bw(self):
         bh = np.clip(self.h - 64 * np.arange(self.rc), 0, 64).astype(np.int32)
         bw = np.clip(self.w - 64 * np.arange(self.cc), 0, 64).astype(np.int32)
         return bh, bw
+
+    @functools.lru_cache(maxsize=None)
+    def wavefront_tiled(self, tiles: int):
+        """Per-tile wavefront tables [T, D, A]: each tile owns cc/tiles
+        contiguous CTU columns; a diagonal's active set is restricted to
+        the tile's own columns (act_c stays GLOBAL for coordinate math;
+        subtract the tile's base for local indexing). D is the global
+        number of diagonals, the same for every tile; A is the largest
+        per-tile per-diagonal occupancy."""
+        rc, cc = self.rc, self.cc
+        if cc % tiles:
+            raise ValueError(f"{cc} CTU columns do not divide into {tiles} "
+                             f"tiles")
+        cl = cc // tiles
+        d_tot = 2 * (rc - 1) + cc
+        sets = [[[(r, c) for r in range(rc) for c in range(cc)
+                  if 2 * r + c == d and t * cl <= c < (t + 1) * cl]
+                 for d in range(d_tot)] for t in range(tiles)]
+        a = max(len(cells) for per_t in sets for cells in per_t)
+        a = max(a, 1)
+        act_r = np.zeros((tiles, d_tot, a), dtype=np.int32)
+        act_c = np.zeros((tiles, d_tot, a), dtype=np.int32)
+        act_m = np.zeros((tiles, d_tot, a), dtype=bool)
+        for t in range(tiles):
+            for d, cells in enumerate(sets[t]):
+                for j, (r, c) in enumerate(cells):
+                    act_r[t, d, j], act_c[t, d, j] = r, c
+                    act_m[t, d, j] = True
+        return act_r, act_c, act_m
 
 
 def pad_plane(p: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
@@ -567,20 +588,25 @@ class _Upload:
         return self._buf[key][off: off + int(np.prod(shape))].view(shape)
 
 
-def _stage2_plan(geom: Geometry, tz: np.ndarray, c8: np.ndarray,
-                 upload: _Upload):
+def _stage2_plan(geom: Geometry, wavefront, tz: np.ndarray, c8: np.ndarray,
+                 upload: _Upload, c0: int = 0):
     """Host plan of the wavefront: per diagonal the active CTUs (frame-
-    major rows) and the TU steps that fire for at least one of them, each
-    with its firing mask and availability (in picture & decoded before).
-    tz/c8 [B, rc, cc, 8, 8] are the leaf-TU-size and coded slot maps."""
-    act_r, act_c, act_m = geom.wavefront
+    major rows; columns local to the tile) and the TU steps that fire for
+    at least one of them, each with its firing mask and availability (in
+    picture & decoded before, in global picture coordinates: a tile-
+    sharded stream has no HEVC tiles, so a CTU across a tile edge is
+    available as in the single-device encode). wavefront is the tile's
+    (act_r, act_c, act_m) [D, A] with global columns, c0 the tile's first
+    column; tz/c8 [B, rc, cl, 8, 8] are the tile's leaf-TU-size and coded
+    slot maps. A diagonal with none of the tile's CTUs plans no step."""
+    act_r, act_c, act_m = wavefront
     b = tz.shape[0]
     plan = []
     for dr, dc, dm in zip(act_r, act_c, act_m):
         r = np.tile(dr[dm].astype(np.int64), b)
         c = np.tile(dc[dm].astype(np.int64), b)
         bi = np.repeat(np.arange(b, dtype=np.int64), int(dm.sum()))
-        tzd, c8d = tz[bi, r, c], c8[bi, r, c]                # [BA, 8, 8]
+        tzd, c8d = tz[bi, r, c - c0], c8[bi, r, c - c0]      # [BA, 8, 8]
 
         def avail(oy, ox, n, cy, cx, hh, ww, span):
             dy, dx = ctu.boundary_offsets(n)
@@ -607,7 +633,7 @@ def _stage2_plan(geom: Geometry, tz: np.ndarray, c8: np.ndarray,
                                geom.h // 2, geom.w // 2, 32))
             if lstep or cstep:
                 steps.append((n, oy, ox, lstep, cstep))
-        plan.append((upload.add(np.stack([bi, r, c])), steps))
+        plan.append((upload.add(np.stack([bi, r, c - c0])), steps))
     return plan
 
 
@@ -720,6 +746,16 @@ def _make_ext(top: torch.Tensor, left: torch.Tensor,
     ext[:, 0, 2 * span + 1] = top[:, -1]
     ext[:, 1: span + 1, 0] = left
     return ext
+
+
+def _tile_edges(ry: torch.Tensor, ru: torch.Tensor, rv: torch.Tensor):
+    """A tile's halo payloads [B, rc, 64 + 32 + 32] (Y, U, V) from its
+    blocked recon [B, rc, cl, n, n]: the right-edge column of its last
+    CTU column (for the tile on its right) and the bottom row of its
+    first (for the tile on its left)."""
+    planes = (ry, ru, rv)
+    return (torch.cat([p[:, :, -1, :, -1] for p in planes], dim=-1),
+            torch.cat([p[:, :, 0, -1, :] for p in planes], dim=-1))
 
 
 def _checksum_plane(plane: torch.Tensor) -> torch.Tensor:
@@ -893,6 +929,10 @@ class FrameEncoder:
         self.rdoq_lam_c = self.rdoq_lam / w_c
         self.ts_lam_c = self.ts_lam / w_c
         self._clock = _StageClock(self.device)
+        # a parallel.Mesh of more than one tile runs stage 2 per tile
+        # (parallel.ShardedEncoder sets it); stage 1 and the filters stay
+        # full-width on every rank
+        self.shard = None
 
     # -- public API --------------------------------------------------------
 
@@ -912,6 +952,11 @@ class FrameEncoder:
                 raise ValueError("search='cnn' needs labels")
             labels = np.zeros((np.shape(y)[0], self.geom.rc * self.geom.cc,
                                16), np.int8)
+        return self.collect(self.encode_dispatch(y, u, v, labels, qp_map))
+
+    def encode_dispatch(self, y, u, v, labels, qp_map=None) -> dict:
+        """encode() up to the on-device output dict (tensors); pass it to
+        collect(). labels [B, rc*cc, 16] are required here."""
         self._clock = _StageClock(self.device)
         self._clock.mark("start")
         y, u, v = self._to_device(y, u, v)
@@ -920,8 +965,7 @@ class FrameEncoder:
             qp_map = torch.as_tensor(np.asarray(qp_map, np.uint8)).to(
                 self.device).to(torch.int32)
         self._clock.mark("upload")
-        return self.collect(self._encode_impl(y, u, v, lab.to(torch.int32),
-                                              qp_map))
+        return self._encode_impl(y, u, v, lab.to(torch.int32), qp_map)
 
     def encode_fused(self, cnn, y, u, v, *, lite: bool = False) -> dict:
         """ConvNet2 depth labels + encode on the encoder's device; cnn is a
@@ -1013,16 +1057,24 @@ class FrameEncoder:
 
     def _encode_impl(self, y, u, v, labels, qp_map=None):
         g = self.geom
+        if qp_map is not None and self.shard is not None:
+            raise ValueError("per-CTU QP maps are not supported under tile "
+                             "sharding")
         yp = pad_plane(y.to(torch.int32), g.hp, g.wp)
         up = pad_plane(u.to(torch.int32), g.hp // 2, g.wp // 2)
         vp = pad_plane(v.to(torch.int32), g.hp // 2, g.wp // 2)
+
         def reconstruct(dec):
-            return self._reconstruct(yp, up, vp, dec["mode_slot"],
-                                     dec["cmode_slot"],
-                                     to_blocked(dec["tusz_frame"], 8),
-                                     dec["coded8"],
-                                     to_blocked(dec["mode4_frame"], 16),
-                                     qp_map)
+            out = self._reconstruct(yp, up, vp, dec["mode_slot"],
+                                    dec["cmode_slot"],
+                                    to_blocked(dec["tusz_frame"], 8),
+                                    dec["coded8"],
+                                    to_blocked(dec["mode4_frame"], 16),
+                                    qp_map, self.shard)
+            if self.shard is not None:
+                # every rank of the tile group filters the full width
+                out = {k: self.shard.gather_width(t) for k, t in out.items()}
+            return out
 
         dec = self._decide(yp, up, vp, labels)
         self._clock.mark("stage1")
@@ -1236,49 +1288,87 @@ class FrameEncoder:
                 scaled(self.ts_lam_c, sc2))
 
     def _reconstruct(self, yp, up, vp, mode_slot, cmode_slot, tusz_slot,
-                     coded8, mode4_blk, qp_map=None):
-        """Wavefront reconstruction (single device): diagonals in order,
-        the planned TU steps of each in z-order. qp_map [B, rc, cc] gives
-        each CTU its own QP and λs."""
+                     coded8, mode4_blk, qp_map=None, shard=None):
+        """Wavefront reconstruction: diagonals in order, the planned TU
+        steps of each in z-order. qp_map [B, rc, cc] gives each CTU its
+        own QP and λs.
+
+        shard (a parallel.Mesh with more than one tile) runs this rank's
+        tile of cc/tiles CTU columns: the inputs stay global, the state
+        and the outputs are the tile's [B, rc, cl, ...]. The cross-tile
+        dependencies, the left CTU's right edge (and the above-left
+        corner) and the above-right CTU's bottom row, come from halos
+        that every tile exchanges after every diagonal, whether or not it
+        had a CTU on it (shard.exchange is collective)."""
         g = self.geom
         b = yp.shape[0]
         dev = yp.device
-        rc, cc = g.rc, g.cc
+        rc = g.rc
         i32 = torch.int32
+        tiles, ti = (1, 0) if shard is None else (shard.tile,
+                                                  shard.tile_index)
+        cl = g.cc // tiles
+        c0 = ti * cl
+        own = slice(c0, c0 + cl)
 
         def zeros(*shape, dtype=i32):
-            return torch.zeros((b, rc, cc) + shape, dtype=dtype, device=dev)
+            return torch.zeros((b, rc, cl) + shape, dtype=dtype, device=dev)
 
-        oy_b, ou_b, ov_b = (to_blocked(yp, 64), to_blocked(up, 32),
-                            to_blocked(vp, 32))
+        oy_b, ou_b, ov_b = (to_blocked(yp, 64)[:, :, own],
+                            to_blocked(up, 32)[:, :, own],
+                            to_blocked(vp, 32)[:, :, own])
+        mode_slot, cmode_slot, mode4_blk = (
+            mode_slot[:, :, own], cmode_slot[:, :, own], mode4_blk[:, :, own])
         ry, ru, rv = zeros(64, 64), zeros(32, 32), zeros(32, 32)
         lvy, lvu, lvv = zeros(64, 64), zeros(32, 32), zeros(32, 32)
         cby, cbu, cbv = (zeros(8, 8, dtype=torch.bool) for _ in range(3))
         cb4, t4b = (zeros(16, 16, dtype=torch.bool) for _ in range(2))
         tub, tvb = (zeros(8, 8, dtype=torch.bool) for _ in range(2))
+        # halos: from the left tile its right-edge columns, from the right
+        # tile its first column's bottom rows, [B, rc, 64 + 32 + 32] (Y, U,
+        # V); zero before the first exchange and beyond the picture's edges
+        # (dead there: availability masks them off)
+        halo_l = halo_r = torch.zeros((b, rc, 128), dtype=i32, device=dev)
 
         upload = _Upload()
-        plan = _stage2_plan(g, tusz_slot.cpu().numpy(),
-                            coded8.cpu().numpy(), upload)
+        plan = _stage2_plan(g, tuple(t[ti] for t in g.wavefront_tiled(tiles)),
+                            tusz_slot[:, :, own].cpu().numpy(),
+                            coded8[:, :, own].cpu().numpy(), upload, c0)
         upload.upload(dev)
 
-        for idx, steps in plan:
+        for d, (idx, steps) in enumerate(plan):
+            if shard is not None and d:
+                # every tile, every diagonal: the exchange is collective
+                halo_l, halo_r = shard.exchange(*_tile_edges(ry, ru, rv))
             bi, ri, ci = upload.get(idx)
             ba = bi.shape[0]
+            if ba == 0:
+                continue
             rim = torch.clamp_min(ri - 1, 0)
             cim = torch.clamp_min(ci - 1, 0)
-            cip = torch.clamp_max(ci + 1, cc - 1)
+            cip = torch.clamp_max(ci + 1, cl - 1)
+            at_l = (ci == 0)[:, None]
+            at_r = (ci == cl - 1)[:, None]
 
-            def strips(rp, span):
-                # neighbor strips (clamped indices; masked by availability)
-                top = torch.cat([rp[bi, rim, cim, span - 1, span - 1][:, None],
-                                 rp[bi, rim, ci, span - 1, :],
-                                 rp[bi, rim, cip, span - 1, :]], dim=-1)
-                return top, rp[bi, ri, cim, :, span - 1]
+            def strips(rp, span, lo):
+                # neighbor strips (clamped indices; masked by availability);
+                # at the tile's edges the neighbors come from the halos
+                corner = rp[bi, rim, cim, span - 1, span - 1][:, None]
+                above_r = rp[bi, rim, cip, span - 1, :]
+                left = rp[bi, ri, cim, :, span - 1]
+                if shard is not None:
+                    hl = halo_l[..., lo: lo + span]
+                    hr = halo_r[..., lo: lo + span]
+                    corner = torch.where(at_l, hl[bi, rim, span - 1:], corner)
+                    above_r = torch.where(at_r, hr[bi, rim], above_r)
+                    left = torch.where(at_l, hl[bi, ri], left)
+                top = torch.cat([corner, rp[bi, rim, ci, span - 1, :],
+                                 above_r], dim=-1)
+                return top, left
 
-            top_y, left_y = strips(ry, 64)
-            top_u, left_u = strips(ru, 32)
-            top_v, left_v = strips(rv, 32)
+            top_y, left_y = strips(ry, 64, 0)
+            top_u, left_u = strips(ru, 32, 64)
+            top_v, left_v = strips(rv, 32, 96)
             ext_y = _make_ext(top_y, left_y, 64)
             ext_c = _make_ext(torch.cat([top_u, top_v]),
                               torch.cat([left_u, left_v]), 32)
