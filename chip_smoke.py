@@ -10,9 +10,13 @@ Phases (each fails the run with a nonzero exit):
      + 1 and every M the paths below launch it at: bit-identical (the
      run records each launch's shape and fails on one not checked
      here); then, at the main
-     path's two shapes (1080p and 416x240 x 8), bit-identical again on
-     the timed inputs, and kernel and plain-version times beside K1's
-     bound (bytes, integer instructions);
+     path's two shapes (1080p and 416x240 x 8) and the calibration's
+     (416x240 x 2, 128x64 x 2), bit-identical again on the timed inputs,
+     and kernel and plain-version times beside K1's bound (bytes, integer
+     instructions); and the gather-form predictor
+     intra.predict_all_modes, on the card, as the oracle of the matmul
+     form (intra_mm.predict_all_modes_mm) K1's tap table comes from, at
+     every n, luma and chroma;
   3. ConvNet2 labels on the card equal the CPU port's on a 416x240 frame;
   4. the main path at 416x240, 8 frames: encode_fused_dispatch + collect +
      encode_stream, decoded back with the hash SEI verifying, K1 launched
@@ -68,10 +72,19 @@ Phases (each fails the run with a nonzero exit):
  14. hevctpu_torch.ops.inter (motion compensation, motion search, MV
      bits, weighted prediction, merge candidates) on a 416x240 pair of
      clip_sine frames on the card against the CPU port: integers bit for
-     bit, wp_acdc's AC within a relative 1e-6.
+     bit, wp_acdc's AC within a relative 1e-6;
+ 15. the calibration path (pipeline/calibrate.py, behind
+     tools/*_torch.py) on the card at the tools' 416x240, one clip, one
+     QP: (a) the rate-weight samples of a 2-frame full-RD encode (exact
+     CABAC bits, bin features that reproduce estimate_tu_bits on the
+     card) and their ridge fit, (b) the context count table of a 4-frame
+     encode, (c) the domain dataset of 8 frames of full-RD labels and 1
+     epoch of ConvNet2 from CKPT_DOMAIN.npz; K1 launched 4, 4 and 8
+     times; then all three at 64x128 x 2 on the card and on the CPU port:
+     integers equal, 1 epoch of training within phase 12b's bounds.
 Then one JSON line of the paths, one of the kernels (K1's launches summed
-over the paths 4, 5, 7, 8, 9, 10, 11's card encodes, 12a and 13's
-ranks), the card's name and power limit, and the last line
+over the paths 4, 5, 7, 8, 9, 10, 11's card encodes, 12a, 13's ranks and
+15), the card's name and power limit, and the last line
 {"ok": true, "device": {...}}.
 
 Run from the repository root: python3 chip_smoke.py
@@ -130,9 +143,10 @@ M_1080P = k1_rows(1080, 1920, 1)
 M_416X240X8 = k1_rows(240, 416, 8)
 # The other grids the paths launch K1 at: the CLI's one batch of 4 frames
 # (phase 7), one picture per encode (phases 6-8: the rate controller
-# encodes one at a time) and the QP-map fixture (phase 9).
+# encodes one at a time), the QP-map fixture (phase 9), the rate-weight
+# tool's two frames and the calibration's card-vs-CPU size (phase 15).
 M_PATHS = [M_1080P, M_416X240X8, k1_rows(240, 416, 4), k1_rows(240, 416, 1),
-           k1_rows(128, 192, 2)]
+           k1_rows(128, 192, 2), k1_rows(240, 416, 2), k1_rows(64, 128, 2)]
 # (n, M, luma) of every K1 launch after phase 2, to show each was held
 # against the plain version there.
 K1_LAUNCHED = set()
@@ -245,7 +259,9 @@ def phase_k1(rng, dev, sm_hz):
                     fail(f"K1 disagrees with its plain version (n={n}, "
                          f"luma={is_luma}, M={m})")
     shapes = {}
-    for shape, ms_of in (("1920x1080", M_1080P), ("416x240x8", M_416X240X8)):
+    for shape, ms_of in (("1920x1080", M_1080P), ("416x240x8", M_416X240X8),
+                         ("416x240x2", k1_rows(240, 416, 2)),
+                         ("128x64x2", k1_rows(64, 128, 2))):
         tot = dict(ms=0.0, plain_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
                    bound_ms=0.0)
         per_n = {}
@@ -286,6 +302,48 @@ def phase_k1(rng, dev, sm_hz):
                 bound_ms=hd["bound_ms"],
                 bound_by=("operations" if hd["ops_ms"] >= hd["bytes_ms"]
                           else "bytes"), shapes=shapes, checked=checked)
+
+
+def phase_predict_oracle(rng, dev):
+    """The gather-form predictor (intra.predict_all_modes) on the card is
+    the oracle of the matmul form that K1's tap table comes from
+    (intra_mm.predict_all_modes_mm): equal at every n, luma and chroma,
+    on random and on flat references, and equal to the CPU's."""
+    import torch
+    from hevctpu_torch.ops import intra, intra_mm
+    for n in (4, 8, 16, 32):
+        for is_luma in (True, False):
+            for flat in (False, True):
+                m = 257
+                if flat:   # smooth ramps: the 32x32 strong filter fires
+                    base = rng.integers(20, 230, (m, 1))
+                    top = base + np.arange(2 * n + 1)[None, :] // 16
+                    left = top.copy()
+                else:
+                    top = rng.integers(0, 256, (m, 2 * n + 1))
+                    left = rng.integers(0, 256, (m, 2 * n + 1))
+                    left[:, 0] = top[:, 0]
+                outs = []
+                for d in (dev, torch.device("cpu")):
+                    te, le = (torch.as_tensor(a, dtype=torch.int32).to(d)
+                              for a in (top, left))
+                    tf, lf = intra.smooth_reference(te, le, n)
+                    want = intra.predict_all_modes(te, le, tf, lf, n,
+                                                   is_luma=is_luma)
+                    got = intra_mm.predict_all_modes_mm(te, le, tf, lf, n,
+                                                        is_luma=is_luma)
+                    if not torch.equal(got, want):
+                        bad = (got != want).nonzero()[:4].tolist()
+                        fail(f"predict_all_modes_mm differs from "
+                             f"predict_all_modes on {d.type} (n={n}, "
+                             f"luma={is_luma}, flat={flat}) at {bad}")
+                    outs.append(want.cpu())
+                if not torch.equal(outs[0], outs[1]):
+                    fail(f"predict_all_modes differs card vs CPU (n={n}, "
+                         f"luma={is_luma}, flat={flat})")
+    log("  predict_all_modes_mm = predict_all_modes (the gather-form "
+        "oracle) on the card and on the CPU, n in {4, 8, 16, 32}, luma and "
+        "chroma")
 
 
 def load_cnn(device):
@@ -1077,6 +1135,218 @@ def phase_inter(dev):
     return res
 
 
+CAL_CLIP, CAL_QP, CAL_DOMAIN_QP = "pink", 32, 27
+CAL_SMALL_CLIP = "scene"         # the card-vs-CPU clip at 64x128
+
+
+def _timed(fn):
+    """(fn's result, host seconds) around work that ends in a sync."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _count_k1(label, fn, want):
+    """fn's result with K1's launch count around it, which must be want."""
+    from hevctpu_torch.ops import satd_fused
+    satd_fused.LAUNCHES = 0
+    out = fn()
+    if satd_fused.LAUNCHES != want:
+        fail(f"{label}: K1 launched {satd_fused.LAUNCHES} times, not {want}")
+    return out
+
+
+@contextlib.contextmanager
+def capture_encodes():
+    """Record each FrameEncoder.encode's output dict and seconds (host
+    clock, synchronized) inside the block; the list of (dict, s)."""
+    import torch
+    from hevctpu_torch.pipeline.encoder import FrameEncoder
+    encode = FrameEncoder.encode
+    calls = []
+
+    def capturing(self, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = encode(self, *a, **k)
+        torch.cuda.synchronize()
+        calls.append((out, time.perf_counter() - t0))
+        return out
+
+    FrameEncoder.encode = capturing
+    try:
+        yield calls
+    finally:
+        FrameEncoder.encode = encode
+
+
+def run_calibration(label, fn, want_launches):
+    """One calibration path on the card, K1 launched want_launches times:
+    (fn's result, seconds in all, seconds in its full-RD encodes, the
+    encodes' (dict, seconds))."""
+    with capture_encodes() as calls:
+        out, secs = _timed(lambda: _count_k1(label, fn, want_launches))
+    return out, secs, sum(t for _, t in calls), calls
+
+
+def phase_calibrate(dev):
+    """The calibration path (pipeline/calibrate.py, the functions behind
+    tools/*_torch.py) on the card at the tools' 416x240, cut to one clip
+    (pink), one QP and 1 epoch: (a) the rate-weight samples and fit (2
+    frames), (b) the context count table (4 frames), (c) the domain
+    dataset (8 frames, full-RD labels) and ConvNet2 trained 1 epoch from
+    CKPT_DOMAIN.npz. Each is held against the CPU port at 64x128 x 2 on
+    the scene clip (its decisions vary more at that size): integers
+    exact, training as in phase 12b. Returns (stats, K1 launches)."""
+    import torch
+    from hevctpu_torch.models import checkpoint, train
+    from hevctpu_torch.ops import rate
+    from hevctpu_torch.pipeline import calibrate
+    init = checkpoint.load(os.path.join(ROOT, "CKPT_DOMAIN.npz"))
+    stats, launches = {}, 0
+
+    # (a) rate weights: full-RD encode, exact bits, features, ridge fit
+    (feats, trues), secs, enc_s, calls = run_calibration(
+        "calibrate rate", lambda: calibrate.rate_samples(
+            CAL_QP, [CAL_CLIP], 2, device=dev), 4)
+    launches += 4
+    (fitted, line), fit_s = _timed(
+        lambda: calibrate.fit_rate_weights(feats, trues))
+    w = np.array([rate._W_DEFAULT[k] for k in rate._W_FIELDS]
+                 + [rate.BITS_ONE], np.float64)
+    if len(feats) < 20 or not np.isfinite(trues).all() \
+            or (trues <= 0).any() or len(fitted) != len(rate._W_FIELDS):
+        fail(f"calibrate rate: {len(feats)} TUs, fit {fitted}")
+    # the features reproduce the estimator on the card for the same TUs
+    by_size = {}
+    for (blk, s), f in zip(calibrate.frame_tus(calls[0][0]), feats):
+        by_size.setdefault(s, []).append((blk, f))
+    for s, items in by_size.items():
+        est = rate.estimate_tu_bits(torch.as_tensor(
+            np.stack([b for b, _ in items])).to(dev), s).cpu().numpy()
+        if not np.array_equal(np.stack([f for _, f in items]) @ w, est):
+            fail(f"calibrate rate: features . weights != estimate_tu_bits "
+                 f"on the card (log2 {s})")
+    stats["rate_416x240x2"] = dict(
+        tus=len(feats), s=secs, encode_s=enc_s, host_s=secs - enc_s,
+        fit_s=fit_s, fitted=list(fitted), report=f"qp {CAL_QP}: {line}",
+        k1_launches=4)
+    log(f"  (a) rate weights, {CAL_CLIP} 416x240 x 2, QP {CAL_QP}: "
+        f"{len(feats)} TUs in {secs:.2f} s (full-RD encode {enc_s:.2f} s, "
+        f"exact bits and features on the host {secs - enc_s:.2f} s), fit "
+        f"{fit_s * 1e3:.1f} ms; qp {CAL_QP}: {line}")
+
+    # (b) context counts: full-RD encode, golden-coder bin counts
+    table, secs, enc_s, _ = run_calibration(
+        "calibrate ctx", lambda: calibrate.ctx_count_table(
+            [CAL_QP], [CAL_CLIP], 4, device=dev, log=None), 4)
+    launches += 4
+    bins = sum(c0 + c1 for d in table[CAL_QP].values()
+               for c0, c1 in d.values())
+    if bins < 10000:
+        fail(f"calibrate ctx: {bins} bins")
+    stats["ctx_416x240x4"] = dict(bins=bins, contexts=sum(
+        len(d) for d in table[CAL_QP].values()), s=secs, encode_s=enc_s,
+        host_s=secs - enc_s, k1_launches=4)
+    log(f"  (b) context counts, {CAL_CLIP} 416x240 x 4, QP {CAL_QP}: "
+        f"{bins} bins over {stats['ctx_416x240x4']['contexts']} contexts "
+        f"in {secs:.2f} s (full-RD encode {enc_s:.2f} s, the golden "
+        f"coder's bin walk on the host {secs - enc_s:.2f} s)")
+
+    # (c) domain CNN: full-RD labels, dataset, 1 epoch from CKPT_DOMAIN
+    (x32, x64, digits), secs, enc_s, _ = run_calibration(
+        "calibrate domain", lambda: calibrate.domain_dataset(
+            [CAL_CLIP], 1, 8, [CAL_DOMAIN_QP], device=dev, log=None), 8)
+    launches += 8
+    (params, hist), train_s = _timed(lambda: train.train(
+        x32, x64, digits, params=init, epochs=1, lr=5e-4, log=None,
+        device=dev))
+    if digits.shape[0] != 8 * 28 * 4 or x32.device.type != "cuda" \
+            or not all(np.isfinite(params[k][p]).all()
+                       for k in params for p in params[k]):
+        fail(f"calibrate domain: {digits.shape[0]} samples on "
+             f"{x32.device}, history {hist}")
+    stats["domain_416x240x8"] = dict(
+        samples=int(digits.shape[0]), dataset_s=secs, labels_s=enc_s,
+        train_s=train_s, history=hist, k1_launches=8)
+    log(f"  (c) domain dataset, {CAL_CLIP} seed 100 416x240 x 8, QP "
+        f"{CAL_DOMAIN_QP}: {digits.shape[0]} samples in {secs:.2f} s "
+        f"(full-RD labels, two 4-frame encodes, {enc_s:.2f} s); 1 epoch "
+        f"from CKPT_DOMAIN.npz in {train_s:.2f} s, {hist}")
+
+    # card against the CPU port at 64x128 x 2
+    small = dict(h=64, w=128)
+    card, cpu = {}, {}
+    for d, res in ((dev, card), (torch.device("cpu"), cpu)):
+        want = 4 if d.type == "cuda" else 0
+        res["rate"] = _count_k1(f"rate 64x128 on {d.type}",
+                                lambda: calibrate.rate_samples(
+                                    CAL_QP, [CAL_SMALL_CLIP], 2, device=d,
+                                    **small), want)
+        res["ctx"] = _count_k1(f"ctx 64x128 on {d.type}",
+                               lambda: calibrate.ctx_count_table(
+                                   [CAL_QP], [CAL_SMALL_CLIP], 2, device=d,
+                                   log=None, **small), want)
+        res["domain"] = _count_k1(f"domain 64x128 on {d.type}",
+                                  lambda: calibrate.domain_dataset(
+                                      [CAL_SMALL_CLIP], 1, 2,
+                                      [CAL_DOMAIN_QP], device=d, log=None,
+                                      **small), want)
+        launches += want * 3
+    for i, name in enumerate(("features", "exact bits")):
+        if not np.array_equal(card["rate"][i], cpu["rate"][i]):
+            fail(f"calibrate 64x128: the {name} differ card vs CPU")
+    if calibrate.fit_rate_weights(*card["rate"]) \
+            != calibrate.fit_rate_weights(*cpu["rate"]):
+        fail("calibrate 64x128: the fitted weights differ card vs CPU")
+    if card["ctx"] != cpu["ctx"]:
+        fail("calibrate 64x128: the context count tables differ card vs CPU")
+    for name, a, b in zip(("x32", "x64", "digits"), card["domain"],
+                          cpu["domain"]):
+        if not torch.equal(a.cpu(), b):
+            fail(f"calibrate 64x128: the domain dataset's {name} differs "
+                 f"card vs CPU")
+    runs = {}
+    for name, d, dtype in (("card", dev, torch.float32),
+                           ("cpu", "cpu", torch.float32),
+                           ("card64", dev, torch.float64),
+                           ("cpu64", "cpu", torch.float64)):
+        data = card["domain"] if name.startswith("card") else cpu["domain"]
+        runs[name] = train.train(data[0].to(dtype), data[1].to(dtype),
+                                 data[2], params=init, epochs=1, lr=5e-4,
+                                 log=None, device=d)
+    gaps = {}
+    for a, b in (("card", "cpu"), ("card64", "cpu64")):
+        wg, where = weight_gap(runs[a][0], runs[b][0])
+        lg, ag = history_gaps(runs[a][1], runs[b][1])
+        gaps[f"{a}_vs_{b}"] = dict(weights=wg, tensor=where,
+                                   model=model_gap(runs[a][0], runs[b][0]),
+                                   loss=lg, acc=ag)
+    f32, f64 = gaps["card_vs_cpu"], gaps["card64_vs_cpu64"]
+    if f32["model"] > TRAIN_F32_MODEL or f32["loss"] > TRAIN_F32_LOSS \
+            or f32["acc"] > TRAIN_ACC:
+        fail(f"calibrate 64x128: float32 training card vs CPU beyond the "
+             f"bounds ({TRAIN_F32_MODEL}, {TRAIN_F32_LOSS}, {TRAIN_ACC}): "
+             f"{f32}")
+    if f64["weights"] > TRAIN_F64 or f64["loss"] > TRAIN_F64 \
+            or f64["acc"] > TRAIN_ACC:
+        fail(f"calibrate 64x128: float64 training card vs CPU beyond "
+             f"{TRAIN_F64}: {f64}")
+    stats["card_vs_cpu_64x128x2"] = dict(
+        tus=len(card["rate"][0]), fitted=list(calibrate.fit_rate_weights(
+            *card["rate"])[0]), samples=int(card["domain"][2].shape[0]),
+        train_gaps=gaps)
+    log(f"  {CAL_SMALL_CLIP} 64x128 x 2 card = CPU: {len(card['rate'][0])} "
+        f"TUs' features and "
+        f"bits, the fit, the context table, the domain dataset "
+        f"({card['domain'][2].shape[0]} samples); 1 epoch float32 "
+        f"{json.dumps(f32)}, float64 {json.dumps(f64)}")
+    return stats, launches
+
+
 def _np_of(t):
     return t.cpu().numpy() if hasattr(t, "cpu") else np.asarray(t)
 
@@ -1118,6 +1388,7 @@ def main() -> int:
     log("phase 2: K1 against its plain version on the card "
         "(tolerance 0: bit-identical)")
     k1 = phase_k1(rng, dev, sm_hz)
+    phase_predict_oracle(rng, dev)
     record_k1_shapes()
 
     log("phase 3: ConvNet2 labels, card vs CPU (416x240)")
@@ -1249,6 +1520,11 @@ def main() -> int:
     log("phase 14: ops/inter.py on the card against the CPU port (416x240)")
     inter_res = phase_inter(dev)
 
+    log("phase 15: the calibration path on the card (rate weights, context "
+        "counts, domain CNN), 416x240, then card vs CPU at 64x128")
+    calib, n = phase_calibrate(dev)
+    launches += n
+
     unchecked = sorted(K1_LAUNCHED - k1["checked"])
     if unchecked:
         fail(f"K1 launched at (n, M, luma) {unchecked}, never held against "
@@ -1276,7 +1552,8 @@ def main() -> int:
                                 "train_416x240x4": train_cli,
                                 "train_step_1080p": train_step,
                                 "sharded": sharded,
-                                "inter_416x240": inter_res},
+                                "inter_416x240": inter_res,
+                                "calibrate": calib},
                       "k1_build_s": build_s, "k1": k1["shapes"],
                       "sm_clock_hz": sm_hz}))
     print(json.dumps({"kernels": kernels}))

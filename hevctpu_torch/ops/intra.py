@@ -1,11 +1,15 @@
 """HEVC intra reference samples: availability fill, split and smoothing,
-plus the static angular tables (port of hevctpu/ops/intra.py; prediction
-itself is ops/intra_mm.py's single matmul).
+the static angular tables, and the direct (gather) form of all-35-mode
+prediction (port of hevctpu/ops/intra.py). The encoder predicts with
+ops/intra_mm.py's single matmul; predict_all_modes and predict_one_mode
+here follow H.265 8.4.4.2 term by term and are the oracle that the matmul
+form, and through it K1's tap table, is held against.
 
 Conventions:
   * ``top_ext``  [..., 2N+1]: index 0 is the corner p[-1][-1], index 1+x is
     p[x][-1] for x in [0, 2N).
   * ``left_ext`` [..., 2N+1]: index 0 is the corner, index 1+y is p[-1][y].
+  * Predictions are [..., N, N] indexed [y, x].
 """
 
 from __future__ import annotations
@@ -132,3 +136,144 @@ def smooth_reference(top_ext: torch.Tensor, left_ext: torch.Tensor, n: int,
         top_f = torch.where(use_strong, bilinear(top_ext), top_f)
         left_f = torch.where(use_strong, bilinear(left_ext), left_f)
     return top_f, left_f
+
+
+# ---------------------------------------------------------------------------
+# Prediction (gather form)
+# ---------------------------------------------------------------------------
+
+
+def _angular_all(top: torch.Tensor, left: torch.Tensor, n: int):
+    """All 33 angular modes, generic orientation. Inputs [..., 33, 2n+1]
+    already per-mode-selected (filtered or not). Output [..., 33, n, n]
+    where modes >= 18 are [y, x] and modes < 18 are [x, y] (the caller
+    transposes)."""
+    src, idx, didx, fact = _angular_tables(n)
+    dev = top.device
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    idxt = t(idx).long().expand(top.shape[:-1] + (idx.shape[-1],))
+    refline = torch.where(t(src) == 0, torch.gather(top, -1, idxt),
+                          torch.gather(left, -1, idxt))   # [..., 33, 3n+2]
+    gidx = np.minimum(np.arange(n)[None, None, :] + didx[:, :, None]
+                      + 1 + n, 3 * n + 1)                 # [33, n, n]
+    m_ix = torch.arange(33, device=dev)[:, None, None].expand(33, n, n)
+    a = refline[..., m_ix, t(gidx)]
+    b = refline[..., m_ix, t(np.minimum(gidx + 1, 3 * n + 1))]
+    f = t(fact)[:, :, None]
+    return ((32 - f) * a + f * b + 16) >> 5
+
+
+def _planar_dc(top_ext, left_ext, top_f, left_f, n: int, is_luma: bool,
+               use_f: np.ndarray):
+    """(planar, DC) predictions [..., n, n]: planar on the filtered refs
+    when the mode-0 flag says so, DC on the unfiltered ones with the
+    [1 3]/4 edge and [1 2 1]/4 corner filters for luma n < 32."""
+    log2 = int(np.log2(n))
+    tp = top_f if use_f[rom.PLANAR_IDX] else top_ext
+    lp = left_f if use_f[rom.PLANAR_IDX] else left_ext
+    xs = torch.arange(n, dtype=torch.int32, device=top_ext.device)
+    t_row = tp[..., 1: n + 1][..., None, :]          # [..., 1, n]
+    l_col = lp[..., 1: n + 1][..., :, None]          # [..., n, 1]
+    tr = tp[..., n + 1: n + 2][..., None, :]         # p[n][-1]
+    bl = lp[..., n + 1: n + 2][..., :, None]         # p[-1][n]
+    planar = ((n - 1 - xs)[None, :] * l_col + (xs + 1)[None, :] * tr
+              + (n - 1 - xs)[:, None] * t_row + (xs + 1)[:, None] * bl
+              + n) >> (log2 + 1)
+
+    dc = (top_ext[..., 1: n + 1].sum(-1) + left_ext[..., 1: n + 1].sum(-1)
+          + n) >> (log2 + 1)
+    dc_blk = dc[..., None, None].expand(planar.shape).clone()
+    if is_luma and n < 32:
+        t_u = top_ext[..., 1: n + 1]
+        l_u = left_ext[..., 1: n + 1]
+        dc_blk[..., 0, :] = (t_u + 3 * dc[..., None] + 2) >> 2
+        dc_blk[..., 1:, 0] = (l_u[..., 1:] + 3 * dc[..., None] + 2) >> 2
+        dc_blk[..., 0, 0] = (l_u[..., 0] + 2 * dc + t_u[..., 0] + 2) >> 2
+    return planar.to(top_ext.dtype), dc_blk.to(top_ext.dtype)
+
+
+def predict_all_modes(top_ext: torch.Tensor, left_ext: torch.Tensor,
+                      top_f: torch.Tensor, left_f: torch.Tensor, n: int, *,
+                      is_luma: bool = True,
+                      bit_depth: int = 8) -> torch.Tensor:
+    """Predict all 35 intra modes. ext arrays [..., 2n+1] int; out
+    [..., 35, n, n]. Chroma never filters references (4:2:0) and skips
+    the DC/edge boundary filters (H.265 8.4.4.2)."""
+    maxv = (1 << bit_depth) - 1
+    use_f = _filter_flags(n) if is_luma else np.zeros(35, dtype=bool)
+    sel = torch.as_tensor(use_f[2:], device=top_ext.device)[:, None]
+    topm = torch.where(sel, top_f[..., None, :], top_ext[..., None, :])
+    leftm = torch.where(sel, left_f[..., None, :], left_ext[..., None, :])
+    ang = _angular_all(topm, leftm, n)                # [..., 33, n, n]
+
+    # Edge filters of exactly horizontal / vertical (luma, n < 32): in
+    # the generic orientation both filter column 0 against the side refs.
+    if is_luma and n < 32:
+        corner = top_ext[..., 0:1]
+        for mode, main, side in ((rom.VER_IDX, top_ext, left_ext),
+                                 (rom.HOR_IDX, left_ext, top_ext)):
+            ang[..., mode - 2, :, 0] = torch.clamp(
+                main[..., 1:2] + ((side[..., 1: n + 1] - corner) >> 1),
+                0, maxv)
+
+    # The horizontal family (modes 2..17) back to [y, x].
+    ang = torch.cat([ang[..., :16, :, :].transpose(-1, -2),
+                     ang[..., 16:, :, :]], dim=-3)
+    planar, dc = _planar_dc(top_ext, left_ext, top_f, left_f, n, is_luma,
+                            use_f)
+    return torch.cat([planar[..., None, :, :], dc[..., None, :, :],
+                      ang.to(top_ext.dtype)], dim=-3)
+
+
+def predict_one_mode(top_ext, left_ext, top_f, left_f, mode, n, *,
+                     is_luma=True, bit_depth=8):
+    """Predict one mode per batch element: ext arrays [..., 2n+1], mode
+    [...] int in [0, 34]; out [..., n, n]. Planar, DC and the element's
+    one angular mode, its gather tables indexed by the mode."""
+    maxv = (1 << bit_depth) - 1
+    dev = top_ext.device
+    use_f_tab = _filter_flags(n) if is_luma else np.zeros(35, dtype=bool)
+    mode = torch.as_tensor(mode, device=dev).long()
+    use_f = torch.as_tensor(use_f_tab, device=dev)[mode][..., None]
+    top_in = torch.where(use_f, top_f, top_ext)
+    left_in = torch.where(use_f, left_f, left_ext)
+
+    src, idx, didx, fact = (torch.as_tensor(a, device=dev)
+                            for a in _angular_tables(n))
+    mi = torch.clamp(mode - 2, 0, 32)
+    idx_r = idx[mi].long()                                    # [..., 3n+2]
+    refline = torch.where(src[mi] == 0, torch.gather(top_in, -1, idx_r),
+                          torch.gather(left_in, -1, idx_r))
+    cols = torch.arange(n, device=dev)
+    gidx = torch.clamp_max(didx[mi][..., :, None] + cols + 1 + n,
+                           3 * n + 1).long()                  # [..., n, n]
+    flat = gidx.flatten(-2)
+    a = torch.gather(refline, -1, flat).reshape(gidx.shape)
+    b = torch.gather(refline, -1, torch.clamp_max(flat + 1, 3 * n + 1)
+                     ).reshape(gidx.shape)
+    f = fact[mi][..., :, None]
+    ang = ((32 - f) * a + f * b + 16) >> 5
+
+    if is_luma and n < 32:
+        corner = top_ext[..., 0:1]
+        is_ver = (mode == rom.VER_IDX)[..., None]
+        is_hor = (mode == rom.HOR_IDX)[..., None]
+        main = torch.where(is_ver, top_ext[..., 1:2], left_ext[..., 1:2])
+        side = torch.where(is_ver, left_ext[..., 1: n + 1],
+                           top_ext[..., 1: n + 1])
+        col = torch.clamp(main + ((side - corner) >> 1), 0, maxv)
+        edge = ang.clone()
+        edge[..., :, 0] = col
+        ang = torch.where((is_ver | is_hor)[..., None], edge, ang)
+    ang = torch.where((mode < 18)[..., None, None], ang.transpose(-1, -2),
+                      ang)
+
+    planar, dc = _planar_dc(top_ext, left_ext, top_f, left_f, n, is_luma,
+                            use_f_tab)
+    mode_b = mode[..., None, None]
+    return torch.where(mode_b == rom.PLANAR_IDX, planar,
+                       torch.where(mode_b == rom.DC_IDX, dc,
+                                   ang.to(top_ext.dtype)))

@@ -59,6 +59,12 @@ def lambda_rd(qp: int) -> float:
     return 0.57 * 2.0 ** ((qp - 12) / 3.0)
 
 
+def lambda_per_unit(qp: int) -> float:
+    """λ in distortion per 1/BITS_ONE bit: an estimate_tu_bits() result
+    times this is comparable with a distortion."""
+    return lambda_rd(qp) / BITS_ONE
+
+
 def chroma_dist_weight(qp: int, qp_c: int) -> float:
     """HM's chroma SSE weight 2^((QP-QPc)/3)."""
     return 2.0 ** ((qp - qp_c) / 3.0)
@@ -76,19 +82,26 @@ def _group_min(group: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _last_pos_bits(n: int, w_last: int = W_LAST) -> np.ndarray:
-    """Approximate bits of coding one axis of the last-sig position
-    (9.3.3.8: ctx-coded prefix + bypass suffix), [n] in 1/BITS_ONE units."""
-    out = np.zeros(n, dtype=np.int64)
+def _last_pos_counts(n: int) -> np.ndarray:
+    """(prefix ctx bins, suffix bypass bits) of coding one axis of the
+    last-sig position (9.3.3.8: ctx-coded prefix + bypass suffix) per
+    position, [n, 2]."""
+    out = np.zeros((n, 2), dtype=np.int64)
     g = 4 if n == 4 else (6 if n == 8 else (8 if n == 16 else 10))
     for pos in range(n):
         group = 0
         while group + 1 < g and pos >= _group_min(group + 1):
             group += 1
-        prefix_bins = min(group + 1, g)
-        suffix_bits = max(0, (group >> 1) - 1)
-        out[pos] = prefix_bins * w_last + suffix_bits * BITS_ONE
+        out[pos] = (min(group + 1, g), max(0, (group >> 1) - 1))
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _last_pos_bits(n: int, w_last: int = W_LAST) -> np.ndarray:
+    """Approximate bits of coding one axis of the last-sig position, [n]
+    in 1/BITS_ONE units."""
+    c = _last_pos_counts(n)
+    return c[:, 0] * w_last + c[:, 1] * BITS_ONE
 
 
 @functools.lru_cache(maxsize=None)
@@ -206,6 +219,58 @@ def estimate_tu_bits(levels: torch.Tensor, log2: int,
         dim=(-2, -1))
     total = w["cbf1"] + last_bits + csbf_bits + coeff_bits
     return torch.where(any_nz, total, w["cbf0"]).to(torch.int32)
+
+
+def tu_bit_features(levels: np.ndarray, log2: int) -> np.ndarray:
+    """Per-bin-type counts behind estimate_tu_bits, for the offline weight
+    regression (pipeline/calibrate.py). levels [N, N] int (numpy).
+    Returns [len(_W_FIELDS) + 1] float64: counts for (sig0, sig1, gt1_0,
+    gt1_1, gt2_0, gt2_1, csbf, last-prefix, cbf1, cbf0) followed by the
+    bypass bits (remainders, signs, last suffix), so that counts . weights
+    + bypass * BITS_ONE == estimate_tu_bits for the same weights. Every
+    count is an exact integer."""
+    n = 1 << log2
+    absl = np.abs(np.asarray(levels, np.int64))
+    nz = absl > 0
+    f = np.zeros(len(_W_FIELDS) + 1, np.float64)
+    if not nz.any():
+        f[_W_FIELDS.index("cbf0")] = 1
+        return f
+    f[_W_FIELDS.index("cbf1")] = 1
+
+    pos = _scan_pos(n)
+    last_scan = int(np.max(np.where(nz, pos, -1)))
+    ly, lx = np.argwhere(pos == last_scan)[0]
+    lc = _last_pos_counts(n)
+    f[_W_FIELDS.index("last")] = lc[ly, 0] + lc[lx, 0]
+    bypass = int(lc[ly, 1] + lc[lx, 1])
+
+    cg_sum = absl.reshape(n // 4, 4, n // 4, 4).sum(axis=(1, 3))
+    cg_nz = cg_sum > 0
+    k_cg = rice_param(torch.as_tensor(cg_sum)).numpy()
+    k_full = np.repeat(np.repeat(k_cg, 4, axis=0), 4, axis=1)
+    if n > 4:
+        last_cg = int(np.max(np.where(cg_nz, _scan_pos(n // 4), -1)))
+        f[_W_FIELDS.index("csbf")] = max(last_cg - 1, 0)
+        coeff_mask = np.repeat(np.repeat(cg_nz, 4, axis=0), 4, axis=1)
+    else:
+        coeff_mask = np.ones_like(nz)
+    in_range = (pos <= last_scan) & coeff_mask
+
+    a = absl[in_range]
+    for field, count in (("sig0", a == 0), ("sig1", a > 0),
+                         ("gt1_0", a == 1), ("gt1_1", a > 1),
+                         ("gt2_0", a == 2), ("gt2_1", a > 2)):
+        f[_W_FIELDS.index(field)] = int(count.sum())
+    big = a > 2
+    if big.any():
+        rem = golomb_rice_bits(
+            torch.as_tensor(a[big] - 3, dtype=torch.int32),
+            torch.as_tensor(k_full[in_range][big], dtype=torch.int32))
+        bypass += int(rem.sum())
+    bypass += int((a > 0).sum())         # signs
+    f[-1] = bypass
+    return f
 
 
 def estimate_mode_bits(is_mpm: torch.Tensor,

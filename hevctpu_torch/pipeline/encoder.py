@@ -720,19 +720,45 @@ def _tu_step(ext, levels, orig, mode, fire, oy: int, ox: int, n: int,
                  else torch.zeros_like(cbf))
 
 
-# XLA lowers jnp.exp2(Δ/3) in float32 to exp(Δ·c), its ln 2 constant and
-# the division folded into one float32 c = ln2/3.
-_LN2_OVER_3 = float(np.float32(np.float32(np.log(2.0)) / np.float32(3.0)))
+# The JAX encoder's per-CTU λ scale jnp.exp2(Δ/3) in float32, as XLA
+# compiles it inside the encoder's jit (the division folded into one
+# exp(Δ·c)), for Δ = -51..51: float32 bit patterns. A correctly rounded
+# exp of the same float32 argument Δ·c is 1 ULP away at Δ in {-50, -41,
+# -35, 38}, and another device's exp may round elsewhere, so the port
+# reads the values instead of computing them (tests/test_torch_cuqp.py
+# holds the table to the JAX package).
+_LAMBDA_SCALE_BITS = (
+    0x36FFFFF7, 0x37214518, 0x374B2FFB, 0x377FFFFF, 0x37A14512, 0x37CB2FF5,
+    0x38000004, 0x38214518, 0x384B2FEE, 0x38800000, 0x38A1451C, 0x38CB2FF5,
+    0x38FFFFF8, 0x39214518, 0x394B2FFB, 0x39800000, 0x39A14512, 0x39CB2FF5,
+    0x3A000000, 0x3A214518, 0x3A4B2FF5, 0x3A800000, 0x3AA14518, 0x3ACB2FF5,
+    0x3B000000, 0x3B214518, 0x3B4B2FF5, 0x3B800000, 0x3BA14518, 0x3BCB2FF5,
+    0x3C000000, 0x3C214518, 0x3C4B2FF5, 0x3C800000, 0x3CA14518, 0x3CCB2FF5,
+    0x3D000000, 0x3D214518, 0x3D4B2FF5, 0x3D800000, 0x3DA14518, 0x3DCB2FF5,
+    0x3E000000, 0x3E214518, 0x3E4B2FF5, 0x3E800000, 0x3EA14518, 0x3ECB2FF5,
+    0x3F000000, 0x3F214518, 0x3F4B2FF5, 0x3F800000, 0x3FA14518, 0x3FCB2FF5,
+    0x40000000, 0x40214518, 0x404B2FF5, 0x40800000, 0x40A14518, 0x40CB2FF5,
+    0x41000000, 0x41214518, 0x414B2FF5, 0x41800000, 0x41A14518, 0x41CB2FF5,
+    0x42000000, 0x42214518, 0x424B2FF5, 0x42800000, 0x42A14518, 0x42CB2FF5,
+    0x43000000, 0x43214518, 0x434B2FF5, 0x43800000, 0x43A14518, 0x43CB2FF5,
+    0x44000000, 0x44214518, 0x444B2FF5, 0x44800000, 0x44A14518, 0x44CB2FF5,
+    0x45000000, 0x45214518, 0x454B2FFC, 0x45800000, 0x45A14513, 0x45CB2FF6,
+    0x46000004, 0x46214518, 0x464B2FEF, 0x46800000, 0x46A1451D, 0x46CB2FF6,
+    0x46FFFFF8, 0x47214518, 0x474B2FFC, 0x47800000, 0x47A14513, 0x47CB2FF6,
+    0x48000004,
+)
+
+
+@functools.lru_cache(maxsize=None)
+def _lambda_scale_table(device: torch.device) -> torch.Tensor:
+    bits = np.array(_LAMBDA_SCALE_BITS, dtype=np.uint32)
+    return torch.as_tensor(bits.view(np.float32), device=device)
 
 
 def lambda_scale(dqp: torch.Tensor) -> torch.Tensor:
-    """Per-CTU λ scale 2^(Δ/3) for integer QP deltas Δ, float32, as the
-    JAX encoder lowers it: Δ·c rounded to float32, then its exp in
-    float64 rounded once, so every device gets the same value. Equal to
-    XLA's bit for bit for |Δ| ≤ 34; at Δ in {-50, -41, -35, 38} XLA's
-    float32 exp is 1 ULP off the correctly rounded value taken here."""
-    x = dqp.to(torch.float32) * _LN2_OVER_3
-    return torch.exp(x.to(torch.float64)).to(torch.float32)
+    """Per-CTU λ scale 2^(Δ/3) for integer QP deltas Δ in [-51, 51],
+    float32, bit-identical to the JAX encoder's on every device."""
+    return _lambda_scale_table(dqp.device)[(dqp + 51).long()]
 
 
 def _make_ext(top: torch.Tensor, left: torch.Tensor,

@@ -21,6 +21,11 @@ from hevctpu_torch.codec import decoder
 from hevctpu_torch.models import checkpoint
 from hevctpu_torch.pipeline import yuv
 
+
+# One torch thread a test process: the suite runs in several processes
+# at once, and a thread per core in each makes them contend.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CODEC_CFG = os.path.join(ROOT, "configs", "encoder_intra_main.cfg")
 H = W = 64

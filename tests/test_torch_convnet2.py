@@ -14,6 +14,11 @@ from hevctpu.models import convnet2 as jconv
 from hevctpu_torch.models import checkpoint, convnet2
 from hevctpu_torch.pipeline import clips
 
+
+# One torch thread a test process: the suite runs in several processes
+# at once, and a thread per core in each makes them contend.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(ROOT, "CKPT_DOMAIN.npz")
 

@@ -12,6 +12,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from hevctpu.codec import decoder as jdecoder
 from hevctpu.codec import headers as jheaders
@@ -21,6 +22,11 @@ from hevctpu_torch.codec import decoder, headers
 from hevctpu_torch.models import checkpoint, convnet2
 from hevctpu_torch.pipeline import clips
 from hevctpu_torch.pipeline import encoder as tenc
+
+
+# One torch thread a test process: the suite runs in several processes
+# at once, and a thread per core in each makes them contend.
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W, QP, FRAMES = 64, 128, 32, 2

@@ -14,6 +14,11 @@ from hevctpu_torch import rom
 from hevctpu_torch.ops import ctu, deblock, sao
 
 
+# One torch thread a test process: the suite runs in several processes
+# at once, and a thread per core in each makes them contend.
+torch.set_num_threads(1)
+
+
 def _jax(fn, *args):
     out = jax.jit(fn)(*(jnp.asarray(a) for a in args))
     return jax.tree_util.tree_map(np.asarray, out)

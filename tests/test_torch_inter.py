@@ -16,6 +16,11 @@ import torch
 from hevctpu.ops import inter as jinter
 from hevctpu_torch.ops import inter as tinter
 
+
+# One torch thread a test process: the suite runs in several processes
+# at once, and a thread per core in each makes them contend.
+torch.set_num_threads(1)
+
 AC_RTOL = 1e-6
 
 

@@ -12,6 +12,11 @@ from hevctpu.ops import intra_mm as jintra_mm
 from hevctpu_torch.ops import intra, intra_mm
 
 
+# One torch thread a test process: the suite runs in several processes
+# at once, and a thread per core in each makes them contend.
+torch.set_num_threads(1)
+
+
 def _jax(fn, *args):
     out = jax.jit(fn)(*(jnp.asarray(a) for a in args))
     return jax.tree_util.tree_map(np.asarray, out)
@@ -79,6 +84,35 @@ def test_predict_all_and_selected(n, is_luma):
         _t(top), _t(left), _t(tf), _t(lf), _t(mode), n,
         is_luma=is_luma).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+@pytest.mark.parametrize("is_luma", [True, False])
+def test_predict_gather_form(n, is_luma):
+    """The gather-form predictors (predict_all_modes, predict_one_mode)
+    equal the JAX package's bit for bit, on random and on flat (strong
+    filter) references, and the matmul form equals the port's own gather
+    form."""
+    rng = np.random.default_rng(300 + n)
+    m = 35
+    for flat in (False, True):
+        top, left = _refs(rng, m, n, flat=flat)
+        tf, lf = (np.asarray(x) for x in _jax(
+            lambda a, b: jintra.smooth_reference(a, b, n), top, left))
+        refs = [_t(a) for a in (top, left, tf, lf)]
+        want = _jax(lambda *r: jintra.predict_all_modes(
+            *r, n, is_luma=is_luma), top, left, tf, lf)
+        got = intra.predict_all_modes(*refs, n, is_luma=is_luma)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+        mm = intra_mm.predict_all_modes_mm(*refs, n, is_luma=is_luma)
+        np.testing.assert_array_equal(mm.numpy(), got.numpy())
+
+        mode = rng.permutation(35).astype(np.int32)     # every mode once
+        want = _jax(lambda *r: jintra.predict_one_mode(
+            *r, n, is_luma=is_luma), top, left, tf, lf, mode)
+        got = intra.predict_one_mode(*refs, _t(mode), n, is_luma=is_luma)
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("n", [4, 8, 16, 32])

@@ -14,7 +14,15 @@ import torch
 from hevctpu_torch import get_device
 from hevctpu_torch.pipeline.encoder import FrameEncoder
 
+
+# One torch thread a test process: the suite runs in several processes
+# at once, and a thread per core in each makes them contend.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# The port's command-line tools (tools/*_torch.py) stand alone too.
+PORT_TOOLS = ["fit_rate_constants_torch", "fit_ctx_probs_torch",
+              "train_cnn_domain_torch"]
 
 
 def test_port_imports_without_jax_or_reference():
@@ -26,11 +34,14 @@ def test_port_imports_without_jax_or_reference():
                                        "hevctpu_torch."):
             importlib.import_module(m.name)
         import chip_smoke
+        sys.path.insert(0, "tools")
+        for tool in %r:
+            importlib.import_module(tool)
         bad = [k for k in sys.modules
                if k == "hevctpu" or k.startswith("hevctpu.")]
         assert not bad, bad
         print("isolated")
-    """)
+    """ % (PORT_TOOLS,))
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -39,7 +50,8 @@ def test_port_imports_without_jax_or_reference():
 
 def test_no_import_lines_of_jax_or_reference():
     pat = re.compile(r"^\s*(import|from) (jax|hevctpu)(\.|\s|$)")
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py")] + [
+        os.path.join(ROOT, "tools", f"{t}.py") for t in PORT_TOOLS]
     for d, _, names in os.walk(os.path.join(ROOT, "hevctpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     hits = [(f, i + 1) for f in files

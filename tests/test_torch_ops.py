@@ -18,6 +18,11 @@ from hevctpu.ops import transforms as jtr
 from hevctpu_torch.ops import cost, quant, rate, rd, transforms
 
 
+# One torch thread a test process: the suite runs in several processes
+# at once, and a thread per core in each makes them contend.
+torch.set_num_threads(1)
+
+
 def _t(x):
     return torch.as_tensor(np.array(x))
 
@@ -183,3 +188,36 @@ def test_estimate_mode_bits():
     np.testing.assert_array_equal(
         rate.estimate_mode_bits(_t(is_mpm), _t(idx)).numpy(),
         _jax(jrate.estimate_mode_bits, is_mpm, idx))
+
+
+@pytest.mark.parametrize("log2", [2, 3, 4, 5])
+def test_tu_bit_features(log2):
+    """Per-bin-type counts and bypass bits equal the JAX package's, exact
+    (zero TUs, sparse small levels, large levels with Rice remainders),
+    and reproduce estimate_tu_bits for the default weights."""
+    rng = np.random.default_rng(60 + log2)
+    n = 1 << log2
+    lvl = rng.integers(-3, 4, (16, n, n)) * (rng.random((16, n, n)) < 0.25)
+    lvl[:3] = 0
+    lvl[3:9] *= rng.integers(5, 200, (6, 1, 1))
+    lvl = lvl.astype(np.int32)
+    w = np.array([rate._W_DEFAULT[k] for k in rate._W_FIELDS]
+                 + [rate.BITS_ONE])
+    est = rate.estimate_tu_bits(_t(lvl), log2).numpy()
+    for i, blk in enumerate(lvl):
+        got = rate.tu_bit_features(blk, log2)
+        want = jrate.tu_bit_features(blk, log2)
+        assert got.dtype == want.dtype == np.float64
+        np.testing.assert_array_equal(got, want)
+        assert got @ w == est[i]
+
+
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+def test_last_pos_counts(n):
+    np.testing.assert_array_equal(rate._last_pos_counts(n),
+                                  jrate._last_pos_counts(n))
+
+
+def test_lambda_per_unit():
+    for qp in range(0, 52):
+        assert rate.lambda_per_unit(qp) == jrate.lambda_per_unit(qp)

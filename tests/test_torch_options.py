@@ -25,6 +25,11 @@ from hevctpu_torch.ops import satd_fused
 from hevctpu_torch.pipeline import yuv
 from hevctpu_torch.pipeline import encoder as tenc
 
+
+# One torch thread a test process: the suite runs in several processes
+# at once, and a thread per core in each makes them contend.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W, QP, FRAMES = 64, 128, 32, 2
 OFF = dict(rdoq=False, sbh=False, ts=False, nxn=False, tu_split=False,

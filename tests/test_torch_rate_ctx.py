@@ -33,6 +33,11 @@ from hevctpu_torch.pipeline import encoder as tenc
 from hevctpu_torch.pipeline import yuv
 from test_torch_options import KEYS_RD, busy_clip
 
+
+# One torch thread a test process: the suite runs in several processes
+# at once, and a thread per core in each makes them contend.
+torch.set_num_threads(1)
+
 H, W, QP, FRAMES = 64, 128, 32, 2
 TABLE_FIELDS = ("perm", "posy", "posx", "sigctx", "right_nb", "below_nb",
                 "last_cost", "sig_cost", "csbf_cost", "g1_cost", "g2_cost",

@@ -22,6 +22,11 @@ from hevctpu_torch.models import convnet2
 from hevctpu_torch.pipeline import clips, metrics, preanalysis, ratectrl
 
 
+# One torch thread a test process: the suite runs in several processes
+# at once, and a thread per core in each makes them contend.
+torch.set_num_threads(1)
+
+
 @pytest.mark.parametrize("hw,kbps,n", [((240, 416), 1000.0, 8),
                                        ((128, 256), 300.0, 8),
                                        ((64, 64), 50.0, 8),

@@ -18,6 +18,11 @@ from hevctpu_torch import rom
 from hevctpu_torch.ops import intra_mm, satd_fused
 
 
+# One torch thread a test process: the suite runs in several processes
+# at once, and a thread per core in each makes them contend.
+torch.set_num_threads(1)
+
+
 def _inputs(rng, m, n):
     ext = lambda: rng.integers(0, 256, (m, 2 * n + 1)).astype(np.int32)
     top_e, left_e = ext(), ext()

@@ -26,6 +26,11 @@ import torch.multiprocessing as mp
 
 from hevctpu_torch.pipeline import encoder as E
 
+
+# One torch thread a test process: the suite runs in several processes
+# at once, and a thread per core in each makes them contend.
+torch.set_num_threads(1)
+
 WORLD_TIMEOUT_S = 200      # per world, below the 240 s a test may hang
 
 

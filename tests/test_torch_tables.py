@@ -2,6 +2,7 @@
 
 import numpy as np
 import pytest
+import torch
 
 from hevctpu import rom as jrom
 from hevctpu.ops import intra as jintra
@@ -15,6 +16,11 @@ from hevctpu_torch import rom
 from hevctpu_torch.ops import intra, intra_mm, quant, rate, rate_weights
 from hevctpu_torch.ops import satd_fused
 from hevctpu_torch.pipeline import encoder as tenc
+
+
+# One torch thread a test process: the suite runs in several processes
+# at once, and a thread per core in each makes them contend.
+torch.set_num_threads(1)
 
 
 def _equal(a, b):

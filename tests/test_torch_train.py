@@ -24,6 +24,11 @@ from hevctpu.pipeline import labels as jlabels
 from hevctpu_torch.models import checkpoint, convnet2, train
 from hevctpu_torch.pipeline import labels
 
+
+# One torch thread a test process: the suite runs in several processes
+# at once, and a thread per core in each makes them contend.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(ROOT, "CKPT_DOMAIN.npz")
 LAYERS = ("conv1", "conv64", "conv2", "conv3", "fc1", "fc2", "fc3")

@@ -20,6 +20,11 @@ from hevctpu_torch.models import checkpoint, convnet2
 from hevctpu_torch.pipeline import encoder as tenc
 from test_torch_options import KEYS_RD, busy_clip
 
+
+# One torch thread a test process: the suite runs in several processes
+# at once, and a thread per core in each makes them contend.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W, QP, FRAMES = 64, 128, 32, 2
 
