@@ -81,10 +81,20 @@ Phases (each fails the run with a nonzero exit):
      encode, (c) the domain dataset of 8 frames of full-RD labels and 1
      epoch of ConvNet2 from CKPT_DOMAIN.npz; K1 launched 4, 4 and 8
      times; then all three at 64x128 x 2 on the card and on the CPU port:
-     integers equal, 1 epoch of training within phase 12b's bounds.
+     integers equal, 1 epoch of training within phase 12b's bounds;
+ 16. the evaluation path (pipeline/evaluate.py, pipeline/profile.py,
+     behind tools/*_torch.py): (a) the corpus protocol on pink at 416x240
+     x 8, QPs 22/27/32/37, CKPT_DOMAIN.npz: the port's cnn points (kbps,
+     PSNR Y/U/V, seconds), equal to the JAX tool's points in
+     RD_PINK_CNN_JAX.json, their BD-rate and BD-PSNR against the HM anchor
+     and the pruned HM cached in CORPUS_HM.json and the time saving, K1
+     launched 4 times a QP; (b) cnn and rd points at the four QPs, one
+     QP of each gap-attribution variant and frame 0's per-syntax-element
+     bits at 64x128 x 2, card = CPU port exactly; (c) the per-stage
+     profile at 416x240, cut to 2 frames and 2 reps; the phase's seconds.
 Then one JSON line of the paths, one of the kernels (K1's launches summed
-over the paths 4, 5, 7, 8, 9, 10, 11's card encodes, 12a, 13's ranks and
-15), the card's name and power limit, and the last line
+over the paths 4, 5, 7, 8, 9, 10, 11's card encodes, 12a, 13's ranks,
+15 and 16), the card's name and power limit, and the last line
 {"ok": true, "device": {...}}.
 
 Run from the repository root: python3 chip_smoke.py
@@ -1347,6 +1357,131 @@ def phase_calibrate(dev):
     return stats, launches
 
 
+EVAL_CLIP, EVAL_FRAMES = "pink", 8      # phase 16a: the corpus protocol
+# the JAX tool's points for 16a: tools/measure_corpus.py --skip-hm --model
+# CKPT_DOMAIN.npz --clips pink --modes cnn --out RD_PINK_CNN_JAX.json, run
+# on the CPU at the commit that added this phase
+EVAL_JAX_RECORD = "RD_PINK_CNN_JAX.json"
+EVAL_SMALL_CLIP, EVAL_SMALL_QP = "scene", 32   # 16b: card vs CPU, 64x128
+PROFILE_FRAMES, PROFILE_REPS = 2, 2     # 16c: cut from the tool's 8 and 5/3
+
+
+def _no_time(pts):
+    return [{k: p for k, p in pt.items() if k != "time_s"} for pt in pts]
+
+
+def phase_evaluate(dev):
+    """The evaluation path (pipeline/evaluate.py and pipeline/profile.py,
+    behind tools/*_torch.py): (a) the corpus protocol on one clip, the
+    port's cnn points at 416x240 x 8 and the four QPs against the cached
+    HM anchor and pruned HM, the points equal to the JAX tool's;
+    (b) cnn and rd points, one QP of each gap-attribution variant and
+    one frame's syntax-element bits at 64x128 x 2 on the card and on the
+    CPU port, exactly equal; (c) the stage profile at 416x240, cut to 2
+    frames and 2 reps. Returns (stats, K1 launches)."""
+    import torch
+    from hevctpu_torch.models import checkpoint
+    from hevctpu_torch.pipeline import clips, evaluate, profile
+    t_phase = time.perf_counter()
+    params = checkpoint.load(os.path.join(ROOT, "CKPT_DOMAIN.npz"))
+    qps = list(evaluate.QPS)
+    stats, launches = {}, 0
+
+    # (a) the corpus protocol, pink 416x240 x 8 at QPs 22/27/32/37
+    with open(os.path.join(ROOT, "CORPUS_HM.json")) as f:
+        entry = json.load(f)[evaluate.hm_cache_key(EVAL_CLIP, EVAL_FRAMES,
+                                                    qps)]
+    with open(os.path.join(ROOT, EVAL_JAX_RECORD)) as f:
+        want = _no_time(json.load(f)["per_clip"][EVAL_CLIP]["ours_cnn"])
+    y, u, v = clips.make_clip(EVAL_CLIP, EVAL_FRAMES, 240, 416)
+    pts = _count_k1("evaluate cnn 416x240x8", lambda: evaluate.ours_points(
+        y, u, v, qps, "cnn", params, device=dev, log=log), 4 * len(qps))
+    launches += 4 * len(qps)
+    for p in pts:
+        vals = [p[k] for k in ("bitrate_kbps", "psnr_y", "psnr_u", "psnr_v",
+                               "time_s")]
+        if not (np.isfinite(vals).all() and min(vals) > 0):
+            fail(f"evaluate: point {p}")
+    if _no_time(pts) != want:
+        fail(f"evaluate: the card's {EVAL_CLIP} cnn points {_no_time(pts)} "
+             f"differ from the JAX tool's ({EVAL_JAX_RECORD}) {want}")
+    cdoc = evaluate.hm_summary(entry)
+    cdoc.update(evaluate.mode_summary(entry, "cnn", pts))
+    for p in pts:
+        log(f"  (a) QP {p['qp']}: {p['bitrate_kbps']} kbps, PSNR Y/U/V "
+            f"{p['psnr_y']} / {p['psnr_u']} / {p['psnr_v']} dB, "
+            f"{p['time_s']} s")
+    log(f"  (a) {EVAL_CLIP} 416x240 x {EVAL_FRAMES}, cnn: BD-rate "
+        f"{cdoc['bd_rate_pct_cnn']:+.3f}% BD-PSNR "
+        f"{cdoc['bd_psnr_db_cnn']:+.4f} dB vs the HM anchor, "
+        f"{cdoc['bd_rate_pct_cnn_vs_pruned_hm']:+.3f}% "
+        f"{cdoc['bd_psnr_db_cnn_vs_pruned_hm']:+.4f} dB vs the pruned HM; "
+        f"time saving {cdoc['time_saving_pct_cnn']:+.2f}% "
+        f"({sum(p['time_s'] for p in pts):.3f} s against the anchor's "
+        f"{sum(p['time_s'] for p in entry['anchor']):.3f} s, CORPUS_HM.json)"
+        f"; points equal to the JAX tool's ({EVAL_JAX_RECORD})")
+    stats["corpus_pink_416x240x8"] = cdoc
+
+    # (b) card against the CPU port at 64x128 x 2
+    from hevctpu_torch.codec import headers
+    from hevctpu_torch.pipeline.encoder import FrameEncoder
+    ys, us, vs = clips.make_clip(EVAL_SMALL_CLIP, 2, 64, 128)
+    cfg = headers.StreamConfig(width=128, height=64, qp=EVAL_SMALL_QP)
+    res = {}
+    for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        want_k1 = 4 if d.type == "cuda" else 0
+
+        def run(label, fn, n):
+            return _count_k1(f"evaluate {label} 64x128 on {d.type}", fn,
+                             want_k1 * n)
+
+        r = res[side] = {}
+        for mode in ("cnn", "rd"):
+            r[mode] = _no_time(run(mode, lambda: evaluate.ours_points(
+                ys, us, vs, qps, mode, params, device=d, log=lambda *a: None),
+                len(qps)))
+        for vname in evaluate.VARIANTS:
+            r[vname] = run(vname, lambda: evaluate.variant_points(
+                ys, us, vs, [EVAL_SMALL_QP], vname, device=d,
+                log=lambda *a: None), 2 if vname == "2pass" else 1)
+        out = run("bit stats", lambda: FrameEncoder(
+            64, 128, EVAL_SMALL_QP, search="rd", device=d).encode(
+                ys, us, vs), 1)
+        r["bits"] = evaluate.frame_bit_stats(cfg, out, 0)
+        launches += want_k1 * (2 * len(qps) + len(evaluate.VARIANTS) + 2)
+    for key in res["cpu"]:
+        if res["card"][key] != res["cpu"][key]:
+            fail(f"evaluate 64x128: {key} differs card vs CPU: "
+                 f"{res['card'][key]} against {res['cpu'][key]}")
+    stats["card_vs_cpu_64x128x2"] = res["card"]
+    log(f"  (b) {EVAL_SMALL_CLIP} 64x128 x 2 card = CPU: cnn and rd points "
+        f"at QPs {qps}, the variants {list(evaluate.VARIANTS)} at QP "
+        f"{EVAL_SMALL_QP}, frame 0's {len(res['card']['bits'])} syntax "
+        f"elements' bits ({sum(res['card']['bits'].values()):.1f} in all)")
+
+    # (c) the stage profile, 416x240 cut to 2 frames and 2 reps
+    n_k1 = 4 * (2 * (1 + PROFILE_REPS) + 2 + 2 * (1 + PROFILE_REPS) + 1)
+    prof, secs = _timed(lambda: _count_k1(
+        "profile 416x240x2", lambda: profile.profile_stages(
+            params, frames=PROFILE_FRAMES, device=dev, reps=PROFILE_REPS,
+            full_reps=PROFILE_REPS), n_k1))
+    launches += n_k1
+    ms = prof["stage_ms"]
+    if not all(np.isfinite(t) and t >= 0 for t in ms.values()):
+        fail(f"profile: stage ms {ms}")
+    prof["cut"] = (f"{PROFILE_FRAMES} frames and {PROFILE_REPS} reps, from "
+                   f"the tool's 8 frames, 5 reps (3 for device_full, "
+                   f"entropy_host, fused_total)")
+    prof["s"] = secs
+    stats["profile_416x240x2"] = prof
+    log(f"  (c) profile 416x240 x {PROFILE_FRAMES}, QP 32, pink (cut: "
+        f"{prof['cut']}), {prof['device']}, {secs:.1f} s: stage ms "
+        f"{json.dumps(ms)}; SATD {prof['roofline']['satd_stage']}")
+    stats["s"] = time.perf_counter() - t_phase
+    log(f"  phase 16: {stats['s']:.1f} s")
+    return stats, launches
+
+
 def _np_of(t):
     return t.cpu().numpy() if hasattr(t, "cpu") else np.asarray(t)
 
@@ -1525,6 +1660,11 @@ def main() -> int:
     calib, n = phase_calibrate(dev)
     launches += n
 
+    log("phase 16: the evaluation path on the card (corpus RD against the "
+        "cached HM, card vs CPU at 64x128, the stage profile)")
+    evaluation, n = phase_evaluate(dev)
+    launches += n
+
     unchecked = sorted(K1_LAUNCHED - k1["checked"])
     if unchecked:
         fail(f"K1 launched at (n, M, luma) {unchecked}, never held against "
@@ -1553,7 +1693,8 @@ def main() -> int:
                                 "train_step_1080p": train_step,
                                 "sharded": sharded,
                                 "inter_416x240": inter_res,
-                                "calibrate": calib},
+                                "calibrate": calib,
+                                "evaluate": evaluation},
                       "k1_build_s": build_s, "k1": k1["shapes"],
                       "sm_clock_hz": sm_hz}))
     print(json.dumps({"kernels": kernels}))
