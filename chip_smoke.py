@@ -91,10 +91,21 @@ Phases (each fails the run with a nonzero exit):
      launched 4 times a QP; (b) cnn and rd points at the four QPs, one
      QP of each gap-attribution variant and frame 0's per-syntax-element
      bits at 64x128 x 2, card = CPU port exactly; (c) the per-stage
-     profile at 416x240, cut to 2 frames and 2 reps; the phase's seconds.
+     profile at 416x240, cut to 2 frames and 2 reps; the phase's seconds;
+ 17. the scaling path (hevctpu_torch.parallel's byte tally and
+     tools/scaling_model_torch.py): (a) four gloo ranks, mesh (frame=1,
+     tile=4), at tests/test_sharded_hd.py's 1088x768 (3 CTU columns a
+     tile), one clip_sine frame at fixed depth 1: every key equal to the
+     single-process encode on the card and the stream byte-identical,
+     each rank's tally the closed form of its tile (an edge tile's halos
+     from one neighbour, a middle tile's from two); (b) the tool's main
+     at 128x512, mesh (2, 4), one frame a rank: the JAX tool's keys,
+     every rank's tally the closed form and its checksums the
+     single-process encode's, the model block equal to the formulas at
+     the H100's figures; the ranks' wall seconds and stage ms.
 Then one JSON line of the paths, one of the kernels (K1's launches summed
 over the paths 4, 5, 7, 8, 9, 10, 11's card encodes, 12a, 13's ranks,
-15 and 16), the card's name and power limit, and the last line
+15, 16 and 17), the card's name and power limit, and the last line
 {"ok": true, "device": {...}}.
 
 Run from the repository root: python3 chip_smoke.py
@@ -108,7 +119,6 @@ import datetime
 import io
 import json
 import os
-import queue
 import re
 import subprocess
 import sys
@@ -155,8 +165,16 @@ M_416X240X8 = k1_rows(240, 416, 8)
 # (phase 7), one picture per encode (phases 6-8: the rate controller
 # encodes one at a time), the QP-map fixture (phase 9), the rate-weight
 # tool's two frames and the calibration's card-vs-CPU size (phase 15).
+# Phase 17: the tile-4 geometry of tests/test_sharded_hd.py (12 CTU
+# columns, 3 a tile, 17 rows) on 4 ranks, one frame; the scaling tool at
+# a cut size (mesh (2, 4), one frame a rank) and its closed form's
+# single-process encode of the two frames.
+TILE4_JOB = dict(h=1088, w=768, frames=1, tile=4, clip="sine", fixed_depth=1)
+SCALING_ARGV = ["--h", "128", "--w", "512", "--tile", "4", "--world", "8",
+                "--batch", "1"]
 M_PATHS = [M_1080P, M_416X240X8, k1_rows(240, 416, 4), k1_rows(240, 416, 1),
-           k1_rows(128, 192, 2), k1_rows(240, 416, 2), k1_rows(64, 128, 2)]
+           k1_rows(128, 192, 2), k1_rows(240, 416, 2), k1_rows(64, 128, 2),
+           k1_rows(1088, 768, 1), k1_rows(128, 512, 1), k1_rows(128, 512, 2)]
 # (n, M, luma) of every K1 launch after phase 2, to show each was held
 # against the plain version there.
 K1_LAUNCHED = set()
@@ -955,9 +973,10 @@ def phase_train_step(cnn, dev, sm_hz: float):
     return stats
 
 
-def _rank_main(rank, world, backend, init, job, results):
-    """One rank of a phase-13 world (spawned): the ShardedEncoder encode of
-    job's clip on the card, CNN labels from CKPT_DOMAIN.npz; puts (rank,
+def _rank_main(rank, job, init, results):
+    """One rank of a phase-13 or 17a world (spawned): the ShardedEncoder
+    encode of job's clip on the card, CNN labels from CKPT_DOMAIN.npz or
+    job["fixed_depth"], and the mesh's byte tally of it; puts (rank,
     result) or (rank, traceback) on results."""
     import torch
     import torch.distributed as dist
@@ -968,15 +987,18 @@ def _rank_main(rank, world, backend, init, job, results):
         from hevctpu_torch.parallel import ShardedEncoder, make_mesh
         from hevctpu_torch.pipeline import clips
         record_k1_shapes()
-        dist.init_process_group(backend, init_method=init, rank=rank,
-                                world_size=world,
+        dist.init_process_group(job["backend"], init_method=init,
+                                rank=rank, world_size=job["world"],
                                 timeout=datetime.timedelta(seconds=300))
         mesh = make_mesh(tile=job["tile"])
         h, w, frames = job["h"], job["w"], job["frames"]
         y, u, v = (cuqp_clip(h, w) if job["clip"] == "cuqp"
                    else clips.clip_sine(frames, h, w, seed=0))
-        sh = ShardedEncoder(h, w, QP, mesh, cnn_params=checkpoint.load(
-            os.path.join(ROOT, "CKPT_DOMAIN.npz")))
+        src = (dict(fixed_depth=job["fixed_depth"]) if "fixed_depth" in job
+               else dict(cnn_params=checkpoint.load(
+                   os.path.join(ROOT, "CKPT_DOMAIN.npz"))))
+        sh = ShardedEncoder(h, w, QP, mesh, **src)
+        mesh.reset_tally()
         satd_fused.LAUNCHES = 0
         t0 = time.perf_counter()
         out = sh.encode(y, u, v)
@@ -986,7 +1008,7 @@ def _rank_main(rank, world, backend, init, job, results):
                    k1_shapes=sorted(K1_LAUNCHED), mesh=mesh.shape,
                    coords=(mesh.frame_index, mesh.tile_index),
                    backend=dist.get_backend(),
-                   device=str(sh.enc.device),
+                   device=str(sh.enc.device), tally=mesh.tally,
                    stage_ms={k: round(x, 3)
                              for k, x in sh.enc.stage_ms().items()})
         dist.destroy_process_group()
@@ -995,57 +1017,20 @@ def _rank_main(rank, world, backend, init, job, results):
         results.put((rank, traceback.format_exc()))
 
 
-def run_world(label, world, backend, job, timeout_s):
-    """Spawn a world of ranks running _rank_main; returns their results by
-    rank. A failed rank, or a world that outlives timeout_s, fails the
-    script after every rank is killed."""
-    import torch.multiprocessing as mp
-    ctx = mp.get_context("spawn")
-    results = ctx.Queue()
-    with tempfile.TemporaryDirectory() as tmp:
-        init = "file://" + os.path.join(tmp, "rendezvous")
-        procs = [ctx.Process(target=_rank_main, daemon=True,
-                             args=(r, world, backend, init, job, results))
-                 for r in range(world)]
-        deadline = time.perf_counter() + timeout_s
-        got, err = {}, None
-        try:
-            for p in procs:
-                p.start()
-            while len(got) < world and err is None:
-                try:
-                    rank, res = results.get(
-                        timeout=max(0.1, deadline - time.perf_counter()))
-                except queue.Empty:
-                    err = (f"{label}: no result from ranks "
-                           f"{sorted(set(range(world)) - set(got))} within "
-                           f"{timeout_s} s")
-                    continue
-                if isinstance(res, str):
-                    err = f"{label}: rank {rank} failed:\n{res}"
-                got[rank] = res
-        finally:
-            started = [p for p in procs if p.pid is not None]
-            for p in started:
-                p.join(timeout=max(0.1, deadline - time.perf_counter()))
-            for p in started:
-                if p.is_alive():
-                    p.kill()
-                    p.join(10)
-    if err:
-        fail(err)
-    return got
-
-
 def phase_sharded(label, world, backend, job, want, want_stream, cfg,
-                  timeout_s):
-    """One phase-13 world: every rank's dict must equal want key for key
-    and encode to want_stream; each rank launches K1 4 times. Returns
-    (stats, the ranks' K1 launches)."""
+                  timeout_s, want_tally=None):
+    """One phase-13 or 17a world: every rank's dict must equal want key
+    for key and encode to want_stream; each rank launches K1 4 times;
+    with want_tally (the rank's (frame, tile) -> the tally it must hold),
+    each rank's mesh tallied those bytes. Returns (stats, the ranks' K1
+    launches)."""
     from hevctpu_torch.codec import decoder
-    t0 = time.perf_counter()
-    ranks = run_world(label, world, backend, job, timeout_s)
-    wall = time.perf_counter() - t0
+    from hevctpu_torch.parallel.scaling import run_world
+    try:
+        ranks, wall = run_world(dict(job, world=world, backend=backend,
+                                     deadline_s=timeout_s), _rank_main)
+    except RuntimeError as e:
+        fail(f"{label}: {e}")
     launches = 0
     per_rank = {}
     for rank, res in sorted(ranks.items()):
@@ -1065,6 +1050,9 @@ def phase_sharded(label, world, backend, job, want, want_stream, cfg,
         if res["k1_launches"] != 4:
             fail(f"{label} rank {rank}: K1 launched {res['k1_launches']} "
                  f"times, not 4")
+        if want_tally and res["tally"] != want_tally(res["coords"]):
+            fail(f"{label} rank {rank}: tally {res['tally']}, not the "
+                 f"closed form {want_tally(res['coords'])}")
         launches += res["k1_launches"]
         K1_LAUNCHED.update(tuple(x) for x in res.pop("k1_shapes"))
         per_rank[rank] = res
@@ -1482,6 +1470,130 @@ def phase_evaluate(dev):
     return stats, launches
 
 
+def _scaling_model_formulas(doc: dict) -> dict:
+    """tools/scaling_model.py's model block, written out, at the H100
+    figures the port's report must hold (989 BF16 TFLOP/s, 450 GB/s
+    NVLink each way, 50 GB/s between hosts)."""
+    s = doc["shape"]
+    flops = s["batch"] * s["h"] * s["w"] * 35 * 4 * 2 * 8 * 2 * 2
+    t_c = flops / 989e12
+    t_i = doc["collective_bytes_total"] / 450e9
+    t_d = 0.2e6 * s["batch"] / 50e9
+    return {"t_compute_s_at_peak": t_c, "t_ici_s": t_i,
+            "tile_axis_efficiency": t_c / (t_c + t_i),
+            "two_host_frame_parallel_efficiency": t_c / (t_c / 1 + t_d),
+            "ici_gbs": 450.0, "dcn_gbs": 50.0, "bf16_tflops": 989.0}
+
+
+def _fixed_depth_dispatch(h, w, frames, dev):
+    """The single-process encode of clip_sine seed 0 at fixed depth 1 on
+    the card: (the on-device dict, the host dict with the labels, its K1
+    launches)."""
+    from hevctpu_torch.ops import satd_fused
+    from hevctpu_torch.pipeline import clips
+    from hevctpu_torch.pipeline.encoder import FrameEncoder
+    enc = FrameEncoder(h, w, QP, device=dev)
+    g = enc.geom
+    labels = np.ones((frames, g.rc * g.cc, 16), np.int8)
+    satd_fused.LAUNCHES = 0
+    dispatched = enc.encode_dispatch(*clips.clip_sine(frames, h, w, seed=0),
+                                     labels)
+    out = enc.collect(dispatched)
+    out["labels"] = labels
+    if satd_fused.LAUNCHES != 4:
+        fail(f"{w}x{h} x {frames}: K1 launched {satd_fused.LAUNCHES} times, "
+             f"not 4")
+    return dispatched, out, satd_fused.LAUNCHES
+
+
+def phase_scaling(dev):
+    """Phase 17, the scaling path: (a) a gloo world of 4 ranks, mesh
+    (1, 4), at TILE4_JOB, equal to the single-process encode key for key
+    and in the stream, each rank's tally the closed form of its tile
+    (edge or middle); (b) tools/scaling_model_torch.py's main at
+    SCALING_ARGV: the JAX tool's keys, every rank's tally the closed
+    form, the checksums the single-process encode's, the model the
+    formulas. The tool's ranks are its own processes: their K1 launches
+    come from its report (4 a rank, at k1_rows(128, 512, 1), a grid of
+    M_PATHS). Returns (stats, K1 launches)."""
+    from hevctpu_torch.codec import headers, decoder
+    from hevctpu_torch.parallel.sharded import tally_closed_form
+    t_phase = time.perf_counter()
+    job = TILE4_JOB
+    h, w, frames = job["h"], job["w"], job["frames"]
+    dispatched, want, launches = _fixed_depth_dispatch(h, w, frames, dev)
+    cfg = headers.StreamConfig(width=w, height=h, qp=QP,
+                               hash_type="checksum")
+    t_a = time.perf_counter()
+    tile4, n = phase_sharded(
+        "17a_1088x768_tile4", 4, "gloo", job, want,
+        decoder.encode_stream(cfg, [want]), cfg, 300,
+        want_tally=lambda c: tally_closed_form(h, w, (1, 4), c[1], frames,
+                                               dispatched))
+    launches += n
+    tile4["s"] = time.perf_counter() - t_a
+    log(f"  17a: {tile4['s']:.1f} s, every rank's tally the closed form")
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import scaling_model_torch
+    t_b = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        report = io.StringIO()
+        with contextlib.redirect_stdout(report):
+            doc = scaling_model_torch.main(SCALING_ARGV + [
+                "--deadline", "200", "--out",
+                os.path.join(tmp, "SCALING_TORCH")])
+        with open(os.path.join(tmp, "SCALING_TORCH.json")) as f:
+            if json.load(f) != json.loads(json.dumps(doc, default=float)):
+                fail("17b: SCALING_TORCH.json is not the tool's report")
+    secs_b = time.perf_counter() - t_b
+    keys = {"shape", "collective_bytes", "collective_bytes_total",
+            "collective_bytes_per_frame", "analytic_flops", "model"}
+    if not keys <= set(doc):
+        fail(f"17b: the report lacks {sorted(keys - set(doc))}")
+    s = doc["shape"]
+    fr, tile, b = s["frame_axis"], s["tile"], s["batch"]
+    if (fr, tile) != (2, 4):
+        fail(f"17b: mesh {(fr, tile)}, not (2, 4)")
+    disp_b, want_b, n = _fixed_depth_dispatch(s["h"], s["w"], b, dev)
+    launches += n
+    for r in doc["ranks"]:
+        closed = tally_closed_form(s["h"], s["w"], (fr, tile),
+                                   r["coords"][1], b, disp_b)
+        if r["tally"] != closed:
+            fail(f"17b rank {r['rank']}: tally {r['tally']}, not the closed "
+                 f"form {closed}")
+        if r["checksums"] != want_b["hash_checksum"].tolist():
+            fail(f"17b rank {r['rank']}: picture checksums differ from the "
+                 f"single-process encode")
+        if r["k1_launches"] != 4:
+            fail(f"17b rank {r['rank']}: K1 launched {r['k1_launches']} "
+                 f"times, not 4")
+        launches += r["k1_launches"]
+    want_model = _scaling_model_formulas(doc)
+    for k, v in want_model.items():
+        if abs(doc["model"][k] - v) > 1e-12 * abs(v):
+            fail(f"17b: model {k} = {doc['model'][k]}, the formula gives {v}")
+    if any(t in report.getvalue() for t in ("v5e", "TPU")):
+        fail("17b: the report names a TPU figure")
+    tool = dict(s=secs_b, world_wall_s=doc["run"]["wall_s"], shape=s,
+                collective_bytes=doc["collective_bytes"],
+                collective_bytes_total=doc["collective_bytes_total"],
+                frame_axis_gather=doc["frame_axis_gather"],
+                model=doc["model"],
+                ranks={r["rank"]: dict(wall_s=r["wall_s"],
+                                       stage_ms=r["stage_ms"],
+                                       tally=r["tally"])
+                       for r in doc["ranks"]})
+    log(f"  17b: tools/scaling_model_torch.py {' '.join(SCALING_ARGV)}: "
+        f"{secs_b:.1f} s; every rank's tally the closed form, checksums "
+        f"equal, model = formulas; {json.dumps(tool)}")
+    stats = dict(tile4_1088x768=tile4, tool_128x512=tool,
+                 s=time.perf_counter() - t_phase, k1_launches=launches)
+    log(f"  phase 17: {stats['s']:.1f} s, K1 {launches} launches")
+    return stats, launches
+
+
 def _np_of(t):
     return t.cpu().numpy() if hasattr(t, "cpu") else np.asarray(t)
 
@@ -1665,6 +1777,11 @@ def main() -> int:
     evaluation, n = phase_evaluate(dev)
     launches += n
 
+    log("phase 17: the scaling path (tile-4 mesh, byte tally, "
+        "tools/scaling_model_torch.py)")
+    scaling, n = phase_scaling(dev)
+    launches += n
+
     unchecked = sorted(K1_LAUNCHED - k1["checked"])
     if unchecked:
         fail(f"K1 launched at (n, M, luma) {unchecked}, never held against "
@@ -1694,7 +1811,8 @@ def main() -> int:
                                 "sharded": sharded,
                                 "inter_416x240": inter_res,
                                 "calibrate": calib,
-                                "evaluate": evaluation},
+                                "evaluate": evaluation,
+                                "scaling": scaling},
                       "k1_build_s": build_s, "k1": k1["shapes"],
                       "sm_clock_hz": sm_hz}))
     print(json.dumps({"kernels": kernels}))

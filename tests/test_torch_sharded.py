@@ -6,7 +6,8 @@ Worlds of gloo ranks on the CPU, spawned per module: 4 ranks on a
 (frame=2, tile=2) mesh with the 128x128 x 4 fixed-depth fixture of
 tests/test_sharded.py, and 2 ranks on a (1, 2) mesh with its 64x128 x 4
 CNN fixture. Every rank must return the whole batch's dict equal to the
-single-process one. Each world has its own deadline: a stuck or failed
+single-process one, and its mesh's byte tally equal to the closed form
+of the geometry. Each world has its own deadline: a stuck or failed
 rank fails the test, and its processes are killed.
 
 The wavefront tables are compared with the JAX package's Geometry
@@ -14,15 +15,11 @@ The wavefront tables are compared with the JAX package's Geometry
 """
 
 import datetime
-import os
-import queue
-import time
 import traceback
 
 import numpy as np
 import pytest
 import torch
-import torch.multiprocessing as mp
 
 from hevctpu_torch.pipeline import encoder as E
 
@@ -67,9 +64,11 @@ def _refused(fn) -> str:
 
 
 def _rank_main(rank, job, init, results):
-    """One rank of a spawned world: the mesh, the sharded encodes (halo
-    exchange on, and off for the CNN world) and the refusals that need a
-    tile axis; puts (rank, dict) or (rank, traceback) on results."""
+    """One rank of a spawned world: the mesh (job["tile"] tiles, or
+    make_mesh's default), the sharded encodes (halo exchange on, and off
+    for the CNN world), the mesh's tally of the first, and the refusals
+    that need a tile axis; puts (rank, dict) or (rank, traceback) on
+    results."""
     import torch.distributed as dist
     torch.set_num_threads(1)
     try:
@@ -81,7 +80,7 @@ def _rank_main(rank, job, init, results):
         dist.init_process_group(backend, init_method=init, rank=rank,
                                 world_size=job["world"],
                                 timeout=datetime.timedelta(seconds=120))
-        mesh = make_mesh()
+        mesh = make_mesh(tile=job.get("tile"))
         h, w, qp = job["h"], job["w"], job["qp"]
         y, u, v = _clip(job["b"], h, w, job["seed"])
         src = (dict(cnn_params=convnet2.init_params(0)) if job["cnn"]
@@ -90,6 +89,7 @@ def _rank_main(rank, job, init, results):
                                              mesh.tile_index))
         sh = ShardedEncoder(h, w, qp, mesh, device=dev, **src)
         res["out"] = sh.encode(y, u, v)
+        res["tally"] = mesh.tally
         if job["cnn"]:
             res["no_halo"] = ShardedEncoder(h, w, qp, mesh, device="cpu",
                                             halo_exchange=False,
@@ -109,46 +109,21 @@ def _rank_main(rank, job, init, results):
         results.put((rank, traceback.format_exc()))
 
 
-def run_world(job, tmp_path):
-    """Spawn job["world"] ranks and return their results by rank; fails
-    (after killing every rank) when one fails or the world outlives
-    WORLD_TIMEOUT_S."""
-    ctx = mp.get_context("spawn")
-    results = ctx.Queue()
-    init = "file://" + os.path.join(str(tmp_path), "rendezvous")
-    procs = [ctx.Process(target=_rank_main, args=(r, job, init, results),
-                         daemon=True) for r in range(job["world"])]
-    deadline = time.monotonic() + WORLD_TIMEOUT_S
-    got = {}
+def run_world(job):
+    """Spawn job["world"] ranks of _rank_main and return their results by
+    rank; fails (after killing every rank) when one fails or the world
+    outlives WORLD_TIMEOUT_S."""
+    from hevctpu_torch.parallel.scaling import run_world as spawn
     try:
-        for p in procs:
-            p.start()
-        while len(got) < len(procs):
-            try:
-                rank, res = results.get(
-                    timeout=max(0.1, deadline - time.monotonic()))
-            except queue.Empty:
-                pytest.fail(f"world of {len(procs)} ranks: no result from "
-                            f"ranks {sorted(set(range(len(procs))) - set(got))}"
-                            f" within {WORLD_TIMEOUT_S} s")
-            if isinstance(res, str):
-                pytest.fail(f"rank {rank} failed:\n{res}")
-            got[rank] = res
-    finally:
-        started = [p for p in procs if p.pid is not None]
-        for p in started:
-            p.join(timeout=max(0.1, deadline - time.monotonic()))
-        for p in started:
-            if p.is_alive():
-                p.kill()
-                p.join(10)
-    assert not any(p.is_alive() for p in procs)
-    return got
+        return spawn(dict(job, deadline_s=WORLD_TIMEOUT_S), _rank_main)[0]
+    except RuntimeError as e:
+        pytest.fail(str(e))
 
 
-def _single(job):
+def _single(job, dispatched=None):
     """The port's single-process encode of the job's clip (labels: fixed
-    depth 1, or the port's ConvNet2 from init_params(0))."""
+    depth 1, or the port's ConvNet2 from init_params(0)); the on-device
+    dict before collect() goes into `dispatched` when one is given."""
     from hevctpu_torch.models import convnet2
     y, u, v = _clip(job["b"], job["h"], job["w"], job["seed"])
     enc = E.FrameEncoder(job["h"], job["w"], job["qp"],
@@ -161,20 +136,36 @@ def _single(job):
             job["w"]).numpy().astype(np.int8)
     else:
         labels = np.ones((job["b"], g.rc * g.cc, 16), np.int8)
-    out = enc.encode(y, u, v, labels)
+    dev_out = enc.encode_dispatch(y, u, v, labels)
+    if dispatched is not None:
+        dispatched.update(dev_out)
+    out = enc.collect(dev_out)
     out["labels"] = labels
     return out
 
 
-@pytest.fixture(scope="module")
-def fixed_world(tmp_path_factory):
-    return run_world(FIXED, tmp_path_factory.mktemp("fixed")), \
-        _single(FIXED)
+def spawn_and_encode(job):
+    """run_world and _single of one job, each rank's result holding the
+    closed form of its tally under "closed_form"."""
+    from hevctpu_torch.parallel.sharded import tally_closed_form
+    ranks = run_world(job)
+    dispatched = {}
+    single = _single(job, dispatched)
+    for res in ranks.values():
+        res["closed_form"] = tally_closed_form(
+            job["h"], job["w"], (res["shape"]["frame"], res["shape"]["tile"]),
+            res["coords"][1], job["b"], dispatched)
+    return ranks, single
 
 
 @pytest.fixture(scope="module")
-def cnn_world(tmp_path_factory):
-    return run_world(CNN, tmp_path_factory.mktemp("cnn")), _single(CNN)
+def fixed_world():
+    return spawn_and_encode(FIXED)
+
+
+@pytest.fixture(scope="module")
+def cnn_world():
+    return spawn_and_encode(CNN)
 
 
 def _assert_same(got: dict, want: dict, keys, what: str):
@@ -223,6 +214,38 @@ def test_without_halo_exchange_matches(cnn_world):
         _assert_same(res["no_halo"], single, sorted(single), f"rank {rank}")
 
 
+# (world, halo calls, halo bytes a rank, width-gather bytes a rank): 2
+# frames a rank of 2 x 2 CTUs, 3 exchanges of [2, 2, 128] int32 from the
+# one neighbour; 4 frames a rank of 1 x 2 CTUs, 1 exchange of [4, 1, 128];
+# the 13 stage-2 outputs at 49,984 bytes a CTU a frame
+TALLIES = [("fixed", 3, 3 * 2048, 2 * 4 * 49984),
+           ("cnn", 1, 2048, 4 * 2 * 49984)]
+
+
+@pytest.mark.parametrize("world,calls,halo,width", TALLIES)
+def test_tally_equals_closed_form(request, world, calls, halo, width):
+    """Each rank's tally of its encode: the closed form of the geometry
+    (tally_closed_form), here the halo exchanges and the width gather
+    reckoned by hand; the frame gather of the (2, 2) world is the whole
+    dict's bytes, 2 x each rank's piece; none in the (1, 2) world."""
+    ranks, single = request.getfixturevalue(f"{world}_world")
+    for rank, res in ranks.items():
+        got = res["tally"]
+        assert got == res["closed_form"], f"rank {rank}"
+        assert got["halo"]["tile"] == dict(calls=calls, bytes=halo,
+                                           sent=halo, received=halo)
+        assert got["all-gather"]["tile"]["calls"] == 13
+        assert got["all-gather"]["tile"]["bytes"] == width
+        assert got["all-gather"]["tile"]["received"] == width // 2
+        frames = got["all-gather"].get("frame")
+        if res["shape"]["frame"] == 1:
+            assert frames is None
+        else:
+            # every key but the host's sbh marker
+            assert frames["calls"] == len(single) - 1
+            assert frames["bytes"] == 2 * frames["sent"]
+
+
 def test_meshes_of_the_worlds(fixed_world, cnn_world):
     """make_mesh's default factorization over a world of 4 and of 2, and
     the ranks' coordinates (rank = frame * tile + tile index)."""
@@ -245,13 +268,13 @@ def test_refusals_under_tiles(fixed_world, cnn_world):
 
 
 @pytest.mark.gpu
-def test_nccl_world_of_one_matches_single_process(tmp_path):
+def test_nccl_world_of_one_matches_single_process():
     """One NCCL rank, mesh (1, 1), on the card: the fixed-depth fixture
     equal to the single-process encode on the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: NCCL has no CPU transport")
     job = dict(FIXED, world=1, backend="nccl", device="cuda")
-    ranks = run_world(job, tmp_path)
+    ranks = run_world(job)
     assert ranks[0]["shape"] == {"frame": 1, "tile": 1}
     single = _single(job)
     _assert_same(ranks[0]["out"], single, sorted(single), "NCCL rank 0")
