@@ -10,8 +10,9 @@ Phases (each fails the run with a nonzero exit):
      + 1 and every M the paths below launch it at: bit-identical (the
      run records each launch's shape and fails on one not checked
      here); then, at the main
-     path's two shapes (1080p and 416x240 x 8) and the calibration's
-     (416x240 x 2, 128x64 x 2), bit-identical again on the timed inputs,
+     path's two shapes (1080p and 416x240 x 8), the calibration's
+     (416x240 x 2, 128x64 x 2) and bench_torch.py's batches (416x240 x
+     32, 1088x1920 x 8), bit-identical again on the timed inputs,
      and kernel and plain-version times beside K1's bound (bytes, integer
      instructions); and the gather-form predictor
      intra.predict_all_modes, on the card, as the oracle of the matmul
@@ -102,10 +103,17 @@ Phases (each fails the run with a nonzero exit):
      at 128x512, mesh (2, 4), one frame a rank: the JAX tool's keys,
      every rank's tally the closed form and its checksums the
      single-process encode's, the model block equal to the formulas at
-     the H100's figures; the ranks' wall seconds and stage ms.
+     the H100's figures; the ranks' wall seconds and stage ms;
+ 18. bench_torch.py's measure (bench.py's throughput path: every batch's
+     encode_fused_dispatch with lite=True, then collect and encode_stream
+     with the checksum hash) at 416x240 x 8 frames in one batch of 8,
+     warm-up one batch, 1 rep: its stream byte-identical to phase 4's
+     (same clip, QP and checkpoint; lite against full), K1 launched 4
+     times a batch at shapes phase 2 held; the fps beside each cut from
+     bench.py's defaults and the card's name and power limit.
 Then one JSON line of the paths, one of the kernels (K1's launches summed
 over the paths 4, 5, 7, 8, 9, 10, 11's card encodes, 12a, 13's ranks,
-15, 16 and 17), the card's name and power limit, and the last line
+15, 16, 17 and 18), the card's name and power limit, and the last line
 {"ok": true, "device": {...}}.
 
 Run from the repository root: python3 chip_smoke.py
@@ -168,13 +176,15 @@ M_416X240X8 = k1_rows(240, 416, 8)
 # Phase 17: the tile-4 geometry of tests/test_sharded_hd.py (12 CTU
 # columns, 3 a tile, 17 rows) on 4 ranks, one frame; the scaling tool at
 # a cut size (mesh (2, 4), one frame a rank) and its closed form's
-# single-process encode of the two frames.
+# single-process encode of the two frames. bench_torch.py's batches at
+# bench.py's points: 416x240 x 32 and 1088x1920 x 8.
 TILE4_JOB = dict(h=1088, w=768, frames=1, tile=4, clip="sine", fixed_depth=1)
 SCALING_ARGV = ["--h", "128", "--w", "512", "--tile", "4", "--world", "8",
                 "--batch", "1"]
 M_PATHS = [M_1080P, M_416X240X8, k1_rows(240, 416, 4), k1_rows(240, 416, 1),
            k1_rows(128, 192, 2), k1_rows(240, 416, 2), k1_rows(64, 128, 2),
-           k1_rows(1088, 768, 1), k1_rows(128, 512, 1), k1_rows(128, 512, 2)]
+           k1_rows(1088, 768, 1), k1_rows(128, 512, 1), k1_rows(128, 512, 2),
+           k1_rows(240, 416, 32), k1_rows(1088, 1920, 8)]
 # (n, M, luma) of every K1 launch after phase 2, to show each was held
 # against the plain version there.
 K1_LAUNCHED = set()
@@ -289,7 +299,9 @@ def phase_k1(rng, dev, sm_hz):
     shapes = {}
     for shape, ms_of in (("1920x1080", M_1080P), ("416x240x8", M_416X240X8),
                          ("416x240x2", k1_rows(240, 416, 2)),
-                         ("128x64x2", k1_rows(64, 128, 2))):
+                         ("128x64x2", k1_rows(64, 128, 2)),
+                         ("416x240x32", k1_rows(240, 416, 32)),
+                         ("1088x1920x8", k1_rows(1088, 1920, 8))):
         tot = dict(ms=0.0, plain_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
                    bound_ms=0.0)
         per_n = {}
@@ -1594,6 +1606,46 @@ def phase_scaling(dev):
     return stats, launches
 
 
+BENCH_JOB = dict(point="416x240", h=240, w=416, frames=8, batch=8, reps=1,
+                 warmup="batch")
+
+
+def phase_bench(dev, stream_sd):
+    """Phase 18, bench.py's throughput path through bench_torch.measure at
+    BENCH_JOB: the stream equal to phase 4's, K1 4 launches a batch.
+    Returns (stats, K1 launches)."""
+    import bench_torch
+    from hevctpu_torch.ops import satd_fused
+    job = BENCH_JOB
+    t_phase = time.perf_counter()
+    params, weights = bench_torch._load_params()
+    satd_fused.LAUNCHES = 0
+    fps, rep_fps, run = bench_torch.measure(
+        params, job["h"], job["w"], job["frames"], job["batch"], job["reps"],
+        device=dev, warmup=job["warmup"])
+    launches = satd_fused.LAUNCHES
+    if run["streams"] != [stream_sd]:
+        fail(f"18: bench_torch's stream ({[len(s) for s in run['streams']]} "
+             f"bytes) differs from phase 4's ({len(stream_sd)} bytes)")
+    batches = run["batches"]
+    want = 4 * (1 + job["reps"] * batches)      # warm-up batch + the reps
+    if run["k1_launches_per_pass"] != 4 * batches or launches != want:
+        fail(f"18: K1 launched {launches} times ({run['k1_launches_per_pass']}"
+             f" a pass of {batches} batches), not {want}")
+    cut = bench_torch.cuts(job["point"], job["frames"], job["batch"],
+                           job["reps"], job["warmup"])
+    stats = dict(fps=fps, rep_fps=rep_fps, rep_s=run["rep_s"],
+                 warmup_s=run["warmup_s"],
+                 warmup_batch_stage_ms=run["warmup_stage_ms"],
+                 peak_mem_gib=run["peak_mem_bytes"] / 2 ** 30,
+                 bytes=len(stream_sd), k1_launches=launches, cuts=cut,
+                 card=run["device"], weights=weights,
+                 s=time.perf_counter() - t_phase)
+    log(f"  18: stream byte-identical to phase 4's ({len(stream_sd)} bytes), "
+        f"{fps:.4f} fps; {json.dumps(stats)}")
+    return stats, launches
+
+
 def _np_of(t):
     return t.cpu().numpy() if hasattr(t, "cpu") else np.asarray(t)
 
@@ -1782,6 +1834,11 @@ def main() -> int:
     scaling, n = phase_scaling(dev)
     launches += n
 
+    log("phase 18: bench.py's throughput path (bench_torch.measure), "
+        "416x240 x 8, one batch, against phase 4")
+    bench_sd, n = phase_bench(dev, stream_sd)
+    launches += n
+
     unchecked = sorted(K1_LAUNCHED - k1["checked"])
     if unchecked:
         fail(f"K1 launched at (n, M, luma) {unchecked}, never held against "
@@ -1812,7 +1869,8 @@ def main() -> int:
                                 "inter_416x240": inter_res,
                                 "calibrate": calib,
                                 "evaluate": evaluation,
-                                "scaling": scaling},
+                                "scaling": scaling,
+                                "bench_416x240x8": bench_sd},
                       "k1_build_s": build_s, "k1": k1["shapes"],
                       "sm_clock_hz": sm_hz}))
     print(json.dumps({"kernels": kernels}))

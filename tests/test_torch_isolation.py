@@ -25,7 +25,7 @@ PORT_TOOLS = ["fit_rate_constants_torch", "fit_ctx_probs_torch",
               "train_cnn_domain_torch", "measure_corpus_torch",
               "measure_rd_torch", "attribute_gap_torch", "bit_stats_torch",
               "profile_stages_torch", "measure_pruned_hm_torch",
-              "scaling_model_torch"]
+              "scaling_model_torch", "stage2_steps", "train_precision"]
 
 
 def test_port_imports_without_jax_or_reference():
@@ -37,6 +37,7 @@ def test_port_imports_without_jax_or_reference():
                                        "hevctpu_torch."):
             importlib.import_module(m.name)
         import chip_smoke
+        import bench_torch
         sys.path.insert(0, "tools")
         for tool in %r:
             importlib.import_module(tool)
@@ -53,7 +54,8 @@ def test_port_imports_without_jax_or_reference():
 
 def test_no_import_lines_of_jax_or_reference():
     pat = re.compile(r"^\s*(import|from) (jax|hevctpu)(\.|\s|$)")
-    files = [os.path.join(ROOT, "chip_smoke.py")] + [
+    files = [os.path.join(ROOT, f) for f in ("chip_smoke.py",
+                                             "bench_torch.py")] + [
         os.path.join(ROOT, "tools", f"{t}.py") for t in PORT_TOOLS]
     for d, _, names in os.walk(os.path.join(ROOT, "hevctpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
