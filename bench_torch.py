@@ -11,12 +11,16 @@ single-thread fps (BASELINE_MEASURED.json / BASELINE_1080P.json). Those
 anchor figures were taken on another host, so vs_baseline sets the
 card's fps against HM seconds measured elsewhere.
 
-bench.py's structure is kept so the two scripts read alike: every
-batch's dispatch first, then per batch collect and encode_stream. In the
-port this double-buffering buys nothing: encode_fused_dispatch reads the
-partition to the host to plan stage 2 and issues the whole stage-2 host
-loop before it returns, so each dispatch has done most of its batch's
-work when the next one starts.
+bench.py's double-buffering is kept: every batch's dispatch first,
+then per batch collect and encode_stream. encode_fused_dispatch returns
+once the batch is uploaded (the encode runs on the encoder's worker
+thread, batches in dispatch order), so batch k's collect and host CABAC
+overlap the encode of the batches after it, as in bench.py. They share
+the host with the worker's stage-2 loop: the CABAC coder (ctypes)
+releases the GIL, the stream headers and the lite unpacking (Python and
+numpy) contend for it. The detail file gives each batch's dispatch ms
+(to the dispatch's return) and stream ms (encode_stream) of the last
+pass.
 
 Prints the 1080p line as the last line of stdout and the 416x240 line on
 stderr (with --points naming one point, that point's line is the last
@@ -24,7 +28,8 @@ line of stdout). Every point goes to the detail file (--out, default
 BENCH_DETAIL_TORCH.json; never BENCH_DETAIL.json, the JAX package's
 record) with the card's name and power limit, frames, batch, reps and
 warm-up as run, each cut from bench.py's defaults, each rep's fps, the
-stage ms of one warm-up batch and the peak device memory.
+stage ms of one warm-up batch, the dispatch and stream ms of each batch
+of the last pass and the peak device memory.
 
 Flags cut a run (every default is bench.py's): --points, --frames,
 --batch, --reps, --warmup batch (one batch of the point's shape; the
@@ -101,8 +106,9 @@ def measure(params, h, w, frames, batch, reps, qp=QP, *, device=None,
             warmup=WARMUP):
     """bench.py's measure on the port: returns the median fps, the sorted
     rep fps and a dict of the run (the last pass's streams, one per
-    batch; the warm-up batch's stage ms; peak device memory; K1 launches
-    of one timed pass; the device's label). device is cuda unless the
+    batch; the warm-up batch's stage ms; each batch's dispatch and
+    stream ms in the last pass; peak device memory; K1 launches of one
+    timed pass; the device's label). device is cuda unless the
     caller names the CPU; without CUDA it raises. warmup "full" is one
     untimed pass of every batch (bench.py's), "batch" one batch."""
     from hevctpu_torch import get_device
@@ -125,21 +131,31 @@ def measure(params, h, w, frames, batch, reps, qp=QP, *, device=None,
                                hash_type="checksum")
     spans = [(i, min(i + batch, frames)) for i in range(0, frames, batch)]
 
-    def run_all(spans, stage_ms=None):
-        # bench.py's double-buffering: every batch dispatched, then
-        # drained. stage_ms, when given, takes the first batch's stage
-        # times, read right after its dispatch (the next dispatch resets
-        # the encoder's clock; the read synchronizes the device).
+    def run_all(spans, stage_ms=None, timing=None):
+        # bench.py's double-buffering: every batch dispatched (each
+        # dispatch returns once its batch is uploaded), then drained: batch
+        # k's collect and CABAC overlap the encode of the later batches.
+        # stage_ms, when given, takes the first batch's stage times, read
+        # right after its dispatch: stage_ms() waits for that batch, so
+        # the second batch is dispatched only after it (warm-up only).
+        # timing, when given, takes each batch's ms to the dispatch's
+        # return and its encode_stream ms.
         pend = []
         for i, j in spans:
+            t0 = time.perf_counter()
             pend.append(enc.encode_fused_dispatch(cnn, y[i:j], u[i:j],
                                                   v[i:j], lite=True))
+            if timing is not None:
+                timing["dispatch_ms"].append((time.perf_counter() - t0) * 1e3)
             if stage_ms is not None and len(pend) == 1:
                 stage_ms.update(enc.stage_ms())
         streams = []
         for dev_out in pend:
             out = enc.collect(dev_out, lite=True)
+            t0 = time.perf_counter()
             streams.append(streamlib.encode_stream(cfg, [out]))
+            if timing is not None:
+                timing["stream_ms"].append((time.perf_counter() - t0) * 1e3)
         return streams
 
     if dev.type == "cuda":
@@ -151,15 +167,16 @@ def measure(params, h, w, frames, batch, reps, qp=QP, *, device=None,
     fps, rep_s = [], []
     for _ in range(reps):
         k1_before = satd_fused.LAUNCHES
+        timing = dict(dispatch_ms=[], stream_ms=[])
         t0 = time.perf_counter()
-        streams = run_all(spans)
+        streams = run_all(spans, timing=timing)
         rep_s.append(time.perf_counter() - t0)
         fps.append(frames / rep_s[-1])
     fps.sort()
     run = dict(streams=streams, batches=len(spans),
                device=evaluate.device_label(dev), warmup_s=warmup_s,
                rep_s=rep_s,
-               warmup_stage_ms=stage_ms,
+               warmup_stage_ms=stage_ms, **timing,
                k1_launches_per_pass=satd_fused.LAUNCHES - k1_before,
                peak_mem_bytes=(torch.cuda.max_memory_allocated(dev)
                                if dev.type == "cuda" else None))
@@ -225,6 +242,7 @@ def main(argv=None):
                                           args.warmup),
             weights=weights, warmup_s=run["warmup_s"],
             warmup_batch_stage_ms=run["warmup_stage_ms"],
+            dispatch_ms=run["dispatch_ms"], stream_ms=run["stream_ms"],
             peak_mem_bytes=run["peak_mem_bytes"],
             k1_launches_per_pass=run["k1_launches_per_pass"],
             stream_bytes=[len(s) for s in run["streams"]],

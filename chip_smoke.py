@@ -10,7 +10,7 @@ Phases (each fails the run with a nonzero exit):
      + 1 and every M the paths below launch it at: bit-identical (the
      run records each launch's shape and fails on one not checked
      here); then, at the main
-     path's two shapes (1080p and 416x240 x 8), the calibration's
+     path's two shapes (1080p and 416x240 x 8), two small grids
      (416x240 x 2, 128x64 x 2) and bench_torch.py's batches (416x240 x
      32, 1088x1920 x 8), bit-identical again on the timed inputs,
      and kernel and plain-version times beside K1's bound (bytes, integer
@@ -26,7 +26,7 @@ Phases (each fails the run with a nonzero exit):
   6. one 416x240 frame encoded on the card and on the CPU port: the
      streams must be byte-identical;
   7. the command line, python -m hevctpu_torch encode --search rd, in
-     process on a 416x240 x 4 YUV file with configs/encoder_intra_main.cfg
+     process on a 416x240 x 2 YUV file with configs/encoder_intra_main.cfg
      (one batch), then decode: the hash SEI verifies, the decoded YUV
      equals --recon byte for byte, K1 launched 4 times; fps, stage ms,
      bytes, PSNR-Y; frame 0 encoded with search="rd" on the card and on
@@ -37,7 +37,7 @@ Phases (each fails the run with a nonzero exit):
      per-picture QPs and the achieved kbps;
   9. search="rd" with a random per-CTU QP map at 128x192 x 2 on the card
      and on the CPU port: the streams must be byte-identical;
- 10. the serving options at 416x240 x 4 frames (CNN labels, one batch):
+ 10. the serving options at one 416x240 frame (CNN labels, one batch):
      (a) rate_model="ctx" and (b) two_pass=True, each decoded back with
      the hash SEI verifying and the decoded YUV equal to the recon, K1
      launched 4 and 8 times; (c) bench.py's call, encode_fused_dispatch +
@@ -63,9 +63,10 @@ Phases (each fails the run with a nonzero exit):
      worlds of ranks spawned from this process, each rank computing on
      the one card: (a) two gloo ranks, mesh (frame=2, tile=1), phase 4's
      416x240 x 8 batch, every key equal to phase 4's dict and the stream
-     byte-identical; (b) two gloo ranks, mesh (frame=1, tile=2), phase
-     5's 1920x1080 frame (15 CTU columns a tile, stage 2 per tile with
-     halo exchanges), equal to phase 5's likewise; (c) one NCCL rank,
+     byte-identical; (b) two gloo ranks, mesh (frame=1, tile=2), a
+     1920x256 clip_sine frame (1080p's width, 15 CTU columns a tile, 4
+     of its 17 CTU rows; stage 2 per tile with halo exchanges), equal to
+     the single-process encode likewise; (c) one NCCL rank,
      mesh (1, 1), 128x192 x 2, equal to the single-process encode. Each
      rank launches K1 4 times at shapes phase 2 held; its stage ms and
      the transport are printed. Two ranks share the card, so their times
@@ -76,12 +77,12 @@ Phases (each fails the run with a nonzero exit):
      bit, wp_acdc's AC within a relative 1e-6;
  15. the calibration path (pipeline/calibrate.py, behind
      tools/*_torch.py) on the card at the tools' 416x240, one clip, one
-     QP: (a) the rate-weight samples of a 2-frame full-RD encode (exact
+     QP: (a) the rate-weight samples of a 1-frame full-RD encode (exact
      CABAC bits, bin features that reproduce estimate_tu_bits on the
-     card) and their ridge fit, (b) the context count table of a 4-frame
-     encode, (c) the domain dataset of 8 frames of full-RD labels and 1
-     epoch of ConvNet2 from CKPT_DOMAIN.npz; K1 launched 4, 4 and 8
-     times; then all three at 64x128 x 2 on the card and on the CPU port:
+     card) and their ridge fit, (b) the context count table of a 1-frame
+     encode, (c) the domain dataset of 1 frame of full-RD labels and 1
+     epoch of ConvNet2 from CKPT_DOMAIN.npz; K1 launched 4 times each;
+     then all three at 64x128 x 1 on the card and on the CPU port:
      integers equal, 1 epoch of training within phase 12b's bounds;
  16. the evaluation path (pipeline/evaluate.py, pipeline/profile.py,
      behind tools/*_torch.py): (a) the corpus protocol on pink at 416x240
@@ -89,14 +90,14 @@ Phases (each fails the run with a nonzero exit):
      PSNR Y/U/V, seconds), equal to the JAX tool's points in
      RD_PINK_CNN_JAX.json, their BD-rate and BD-PSNR against the HM anchor
      and the pruned HM cached in CORPUS_HM.json and the time saving, K1
-     launched 4 times a QP; (b) cnn and rd points at the four QPs, one
-     QP of each gap-attribution variant and frame 0's per-syntax-element
-     bits at 64x128 x 2, card = CPU port exactly; (c) the per-stage
-     profile at 416x240, cut to 2 frames and 2 reps; the phase's seconds;
+     launched 4 times a QP; (b) cnn and rd points, one QP of each
+     gap-attribution variant and frame 0's per-syntax-element
+     bits at 64x128 x 1 and QP 32, card = CPU port exactly; (c) the per-stage
+     profile at 416x240, cut to 1 frame and 1 rep; the phase's seconds;
  17. the scaling path (hevctpu_torch.parallel's byte tally and
      tools/scaling_model_torch.py): (a) four gloo ranks, mesh (frame=1,
-     tile=4), at tests/test_sharded_hd.py's 1088x768 (3 CTU columns a
-     tile), one clip_sine frame at fixed depth 1: every key equal to the
+     tile=4), at tests/test_sharded_hd.py's width 768 (3 CTU columns a
+     tile) and 4 of its 17 CTU rows (256), one clip_sine frame at fixed depth 1: every key equal to the
      single-process encode on the card and the stream byte-identical,
      each rank's tally the closed form of its tile (an edge tile's halos
      from one neighbour, a middle tile's from two); (b) the tool's main
@@ -106,11 +107,17 @@ Phases (each fails the run with a nonzero exit):
      the H100's figures; the ranks' wall seconds and stage ms;
  18. bench_torch.py's measure (bench.py's throughput path: every batch's
      encode_fused_dispatch with lite=True, then collect and encode_stream
-     with the checksum hash) at 416x240 x 8 frames in one batch of 8,
-     warm-up one batch, 1 rep: its stream byte-identical to phase 4's
-     (same clip, QP and checkpoint; lite against full), K1 launched 4
-     times a batch at shapes phase 2 held; the fps beside each cut from
-     bench.py's defaults and the card's name and power limit.
+     with the checksum hash), warm-up one batch, 1 rep: (a) at one
+     416x240 frame, its stream byte-identical to phase 6's card stream
+     (same clip, QP and checkpoint; lite against full); (b) at 416x240 x
+     4 in two batches of 2, double-buffered (the second dispatch
+     returns while the first batch encodes on the worker thread), each
+     stream byte-identical to its batch encoded alone one after another,
+     and every dispatch returning in under a tenth of a batch's time
+     (the ms to each dispatch's return and each batch's ms are printed);
+     K1 launched 4 times a batch at shapes phase 2 held; the fps beside
+     each cut from bench.py's defaults and the card's name and power
+     limit.
 Then one JSON line of the paths, one of the kernels (K1's launches summed
 over the paths 4, 5, 7, 8, 9, 10, 11's card encodes, 12a, 13's ranks,
 15, 16, 17 and 18), the card's name and power limit, and the last line
@@ -169,21 +176,29 @@ def k1_rows(h: int, w: int, frames: int) -> dict:
 
 M_1080P = k1_rows(1080, 1920, 1)
 M_416X240X8 = k1_rows(240, 416, 8)
-# The other grids the paths launch K1 at: the CLI's one batch of 4 frames
-# (phase 7), one picture per encode (phases 6-8: the rate controller
-# encodes one at a time), the QP-map fixture (phase 9), the rate-weight
-# tool's two frames and the calibration's card-vs-CPU size (phase 15).
-# Phase 17: the tile-4 geometry of tests/test_sharded_hd.py (12 CTU
-# columns, 3 a tile, 17 rows) on 4 ranks, one frame; the scaling tool at
-# a cut size (mesh (2, 4), one frame a rank) and its closed form's
-# single-process encode of the two frames. bench_torch.py's batches at
-# bench.py's points: 416x240 x 32 and 1088x1920 x 8.
-TILE4_JOB = dict(h=1088, w=768, frames=1, tile=4, clip="sine", fixed_depth=1)
+# The other grids the paths launch K1 at: phase 13a's ranks (4 frames
+# each of phase 4's 8), one picture per encode (phases 6-8, 10, 15, 18a:
+# the rate controller encodes one at a time), the QP-map fixture (phase
+# 9), the CLI's one batch of 2 frames (phase 7) and phase 18b's batches
+# of 2, the card-vs-CPU size of phases 15 and 16b, the tile-2 frame of
+# 13b and the tile-4 frame of 17a (12 CTU columns, 3 a tile, 4 rows);
+# the scaling tool at a cut size (mesh (2, 4), one frame a rank) and its
+# closed form's single-process encode of the two frames. bench_torch.py's
+# batches at bench.py's points: 416x240 x 32 and 1088x1920 x 8.
+# Depth cuts that keep the script inside half its 1200 s on a slow host
+# (each path keeps its widths and its checks):
+CLI_FRAMES = 2              # phases 7, 8 and 12a's file, cut from 4
+OPTIONS_FRAMES = 1          # phase 10's batch, cut from 4
+# 13b: 1080p's width (15 CTU columns a tile), 4 of its 17 CTU rows
+TILE2_JOB = dict(h=256, w=1920, frames=1, tile=2, clip="sine")
+# 17a: tests/test_sharded_hd.py's width 768, 4 of its 17 CTU rows
+TILE4_JOB = dict(h=256, w=768, frames=1, tile=4, clip="sine", fixed_depth=1)
 SCALING_ARGV = ["--h", "128", "--w", "512", "--tile", "4", "--world", "8",
                 "--batch", "1"]
 M_PATHS = [M_1080P, M_416X240X8, k1_rows(240, 416, 4), k1_rows(240, 416, 1),
-           k1_rows(128, 192, 2), k1_rows(240, 416, 2), k1_rows(64, 128, 2),
-           k1_rows(1088, 768, 1), k1_rows(128, 512, 1), k1_rows(128, 512, 2),
+           k1_rows(128, 192, 2), k1_rows(240, 416, 2), k1_rows(64, 128, 1),
+           k1_rows(256, 1920, 1), k1_rows(256, 768, 1),
+           k1_rows(128, 512, 1), k1_rows(128, 512, 2),
            k1_rows(240, 416, 32), k1_rows(1088, 1920, 8)]
 # (n, M, luma) of every K1 launch after phase 2, to show each was held
 # against the plain version there.
@@ -627,15 +642,15 @@ def dict_bytes(d: dict) -> int:
 
 
 def phase_lite(cnn, dev):
-    """bench.py's path at 416x240 x 4: encode_fused_dispatch + collect with
-    lite=True, checksum hash SEI, against the same batch with lite=False.
-    Returns (stats, K1 launches of both runs)."""
+    """bench.py's path at 416x240 x OPTIONS_FRAMES: encode_fused_dispatch +
+    collect with lite=True, checksum hash SEI, against the same batch with
+    lite=False. Returns (stats, K1 launches of both runs)."""
     import torch
     from hevctpu_torch.codec import decoder, headers
     from hevctpu_torch.ops import satd_fused
     from hevctpu_torch.pipeline import clips
     from hevctpu_torch.pipeline.encoder import FrameEncoder
-    h, w, frames = 240, 416, 4
+    h, w, frames = 240, 416, OPTIONS_FRAMES
     y, u, v = clips.clip_sine(frames, h, w, seed=0)
     enc = FrameEncoder(h, w, QP, device=dev)
     cfg = headers.StreamConfig(width=w, height=h, qp=QP,
@@ -645,6 +660,7 @@ def phase_lite(cnn, dev):
         satd_fused.LAUNCHES = 0
         t0 = time.perf_counter()
         dev_out = enc.encode_fused_dispatch(cnn, y, u, v, lite=lite)
+        dev_out.result()              # the encode, on the worker thread
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         nbytes = dict_bytes(dev_out)
@@ -689,7 +705,7 @@ def phase_lite(cnn, dev):
 
 
 def stage1_warm_ms(cnn, dev) -> dict:
-    """Warm device ms of stage 1 (_decide) alone on the 416x240 x 4 batch
+    """Warm device ms of stage 1 (_decide) alone on the 416x240 batch
     with CNN labels, under each rate model: the mean of 3 calls after one
     warm-up call. Its K1 launches are not a path's."""
     import torch
@@ -698,7 +714,7 @@ def stage1_warm_ms(cnn, dev) -> dict:
     from hevctpu_torch.pipeline import encoder as E
     h, w = 240, 416
     y, u, v = (torch.as_tensor(p.astype(np.int32)).to(dev)
-               for p in clips.clip_sine(4, h, w, seed=0))
+               for p in clips.clip_sine(OPTIONS_FRAMES, h, w, seed=0))
     labels = convnet2.predict_frame_labels(cnn, y, u, v, h, w).to(
         torch.int32)
     res = {}
@@ -709,7 +725,8 @@ def stage1_warm_ms(cnn, dev) -> dict:
                   E.pad_plane(u, g.hp // 2, g.wp // 2),
                   E.pad_plane(v, g.hp // 2, g.wp // 2))
         res[rate_model] = cuda_ms(lambda: enc._decide(*planes, labels), 3)
-    log(f"  stage 1 alone, warm, 416x240 x 4: global {res['global']:.3f} "
+    log(f"  stage 1 alone, warm, 416x240 x {OPTIONS_FRAMES}: global "
+        f"{res['global']:.3f} "
         f"ms, ctx {res['ctx']:.3f} ms")
     return res
 
@@ -730,7 +747,8 @@ def phase_options_card_vs_cpu(dev):
 
 
 def phase_train_cli(tmp: str, dev):
-    """python -m hevctpu_torch train on the 416x240 x 4 file, 3 epochs from
+    """python -m hevctpu_torch train on the 416x240 x CLI_FRAMES file, 3
+    epochs from
     CKPT_DOMAIN.npz: K1 launched 4 times for the full-RD labels, the
     written checkpoint has init_params()'s shapes, and frame 0 encoded with
     the trained ConvNet2 decodes with the hash SEI verifying. Returns
@@ -744,7 +762,7 @@ def phase_train_cli(tmp: str, dev):
                                                               "trained.npz")
     satd_fused.LAUNCHES = 0
     text, wall = run_cli(["train", "-i", src, "--width", "416", "--height",
-                          "240", "-f", "4", "-q", str(QP), "--epochs", "3",
+                          "240", "-f", str(CLI_FRAMES), "-q", str(QP), "--epochs", "3",
                           "--init", os.path.join(ROOT, "CKPT_DOMAIN.npz"),
                           "-o", ckpt], "cli_train")
     launches = satd_fused.LAUNCHES
@@ -757,8 +775,8 @@ def phase_train_cli(tmp: str, dev):
     closing = re.search(r"trained 3 epochs, final acc [0-9.]+ -> .*", text)
     if len(hist) != 3 or times is None or closing is None:
         fail("cli_train: the report lacks the epochs, times or closing line")
-    if int(times[4]) != 4 * 28 * 4:
-        fail(f"cli_train: {times[4]} samples, not 448")
+    if int(times[4]) != CLI_FRAMES * 28 * 4:
+        fail(f"cli_train: {times[4]} samples, not {CLI_FRAMES * 28 * 4}")
     if not all(np.isfinite(h["loss"]) for h in hist):
         fail(f"cli_train: non-finite loss in {hist}")
     params, want = checkpoint.load(ckpt), convnet2.init_params()
@@ -1146,6 +1164,10 @@ def phase_inter(dev):
 
 
 CAL_CLIP, CAL_QP, CAL_DOMAIN_QP = "pink", 32, 27
+CAL_RATE_FRAMES = 1         # 15a: cut from 2
+CAL_CTX_FRAMES = 1          # 15b: cut from the tool's 4
+CAL_DOMAIN_FRAMES = 1       # 15c: one encode of 1 (the tool's 8: two of 4)
+CAL_SMALL_FRAMES = 1        # 15's card vs CPU at 64x128: cut from 2
 CAL_SMALL_CLIP = "scene"         # the card-vs-CPU clip at 64x128
 
 
@@ -1205,12 +1227,13 @@ def run_calibration(label, fn, want_launches):
 def phase_calibrate(dev):
     """The calibration path (pipeline/calibrate.py, the functions behind
     tools/*_torch.py) on the card at the tools' 416x240, cut to one clip
-    (pink), one QP and 1 epoch: (a) the rate-weight samples and fit (2
-    frames), (b) the context count table (4 frames), (c) the domain
-    dataset (8 frames, full-RD labels) and ConvNet2 trained 1 epoch from
-    CKPT_DOMAIN.npz. Each is held against the CPU port at 64x128 x 2 on
-    the scene clip (its decisions vary more at that size): integers
-    exact, training as in phase 12b. Returns (stats, K1 launches)."""
+    (pink), one QP and 1 epoch: (a) the rate-weight samples and fit
+    (CAL_RATE_FRAMES frames), (b) the context count table (CAL_CTX_FRAMES frames), (c) the
+    domain dataset (CAL_DOMAIN_FRAMES frames, full-RD labels) and ConvNet2
+    trained 1 epoch from CKPT_DOMAIN.npz. Each is held against the CPU
+    port at 64x128 x CAL_SMALL_FRAMES on the scene clip (its decisions vary more at that
+    size): integers exact, training as in phase 12b. Returns (stats, K1
+    launches)."""
     import torch
     from hevctpu_torch.models import checkpoint, train
     from hevctpu_torch.ops import rate
@@ -1221,7 +1244,7 @@ def phase_calibrate(dev):
     # (a) rate weights: full-RD encode, exact bits, features, ridge fit
     (feats, trues), secs, enc_s, calls = run_calibration(
         "calibrate rate", lambda: calibrate.rate_samples(
-            CAL_QP, [CAL_CLIP], 2, device=dev), 4)
+            CAL_QP, [CAL_CLIP], CAL_RATE_FRAMES, device=dev), 4)
     launches += 4
     (fitted, line), fit_s = _timed(
         lambda: calibrate.fit_rate_weights(feats, trues))
@@ -1240,11 +1263,12 @@ def phase_calibrate(dev):
         if not np.array_equal(np.stack([f for _, f in items]) @ w, est):
             fail(f"calibrate rate: features . weights != estimate_tu_bits "
                  f"on the card (log2 {s})")
-    stats["rate_416x240x2"] = dict(
+    stats[f"rate_416x240x{CAL_RATE_FRAMES}"] = dict(
         tus=len(feats), s=secs, encode_s=enc_s, host_s=secs - enc_s,
         fit_s=fit_s, fitted=list(fitted), report=f"qp {CAL_QP}: {line}",
         k1_launches=4)
-    log(f"  (a) rate weights, {CAL_CLIP} 416x240 x 2, QP {CAL_QP}: "
+    log(f"  (a) rate weights, {CAL_CLIP} 416x240 x {CAL_RATE_FRAMES}, QP "
+        f"{CAL_QP}: "
         f"{len(feats)} TUs in {secs:.2f} s (full-RD encode {enc_s:.2f} s, "
         f"exact bits and features on the host {secs - enc_s:.2f} s), fit "
         f"{fit_s * 1e3:.1f} ms; qp {CAL_QP}: {line}")
@@ -1252,57 +1276,60 @@ def phase_calibrate(dev):
     # (b) context counts: full-RD encode, golden-coder bin counts
     table, secs, enc_s, _ = run_calibration(
         "calibrate ctx", lambda: calibrate.ctx_count_table(
-            [CAL_QP], [CAL_CLIP], 4, device=dev, log=None), 4)
+            [CAL_QP], [CAL_CLIP], CAL_CTX_FRAMES, device=dev, log=None), 4)
     launches += 4
     bins = sum(c0 + c1 for d in table[CAL_QP].values()
                for c0, c1 in d.values())
     if bins < 10000:
         fail(f"calibrate ctx: {bins} bins")
-    stats["ctx_416x240x4"] = dict(bins=bins, contexts=sum(
-        len(d) for d in table[CAL_QP].values()), s=secs, encode_s=enc_s,
+    contexts = sum(len(d) for d in table[CAL_QP].values())
+    stats[f"ctx_416x240x{CAL_CTX_FRAMES}"] = dict(
+        bins=bins, contexts=contexts, s=secs, encode_s=enc_s,
         host_s=secs - enc_s, k1_launches=4)
-    log(f"  (b) context counts, {CAL_CLIP} 416x240 x 4, QP {CAL_QP}: "
-        f"{bins} bins over {stats['ctx_416x240x4']['contexts']} contexts "
+    log(f"  (b) context counts, {CAL_CLIP} 416x240 x {CAL_CTX_FRAMES}, QP "
+        f"{CAL_QP}: {bins} bins over {contexts} contexts "
         f"in {secs:.2f} s (full-RD encode {enc_s:.2f} s, the golden "
         f"coder's bin walk on the host {secs - enc_s:.2f} s)")
 
     # (c) domain CNN: full-RD labels, dataset, 1 epoch from CKPT_DOMAIN
     (x32, x64, digits), secs, enc_s, _ = run_calibration(
         "calibrate domain", lambda: calibrate.domain_dataset(
-            [CAL_CLIP], 1, 8, [CAL_DOMAIN_QP], device=dev, log=None), 8)
-    launches += 8
+            [CAL_CLIP], 1, CAL_DOMAIN_FRAMES, [CAL_DOMAIN_QP], device=dev,
+            log=None), 4)
+    launches += 4
     (params, hist), train_s = _timed(lambda: train.train(
         x32, x64, digits, params=init, epochs=1, lr=5e-4, log=None,
         device=dev))
-    if digits.shape[0] != 8 * 28 * 4 or x32.device.type != "cuda" \
+    if digits.shape[0] != CAL_DOMAIN_FRAMES * 28 * 4 \
+            or x32.device.type != "cuda" \
             or not all(np.isfinite(params[k][p]).all()
                        for k in params for p in params[k]):
         fail(f"calibrate domain: {digits.shape[0]} samples on "
              f"{x32.device}, history {hist}")
-    stats["domain_416x240x8"] = dict(
+    stats[f"domain_416x240x{CAL_DOMAIN_FRAMES}"] = dict(
         samples=int(digits.shape[0]), dataset_s=secs, labels_s=enc_s,
-        train_s=train_s, history=hist, k1_launches=8)
-    log(f"  (c) domain dataset, {CAL_CLIP} seed 100 416x240 x 8, QP "
-        f"{CAL_DOMAIN_QP}: {digits.shape[0]} samples in {secs:.2f} s "
-        f"(full-RD labels, two 4-frame encodes, {enc_s:.2f} s); 1 epoch "
-        f"from CKPT_DOMAIN.npz in {train_s:.2f} s, {hist}")
+        train_s=train_s, history=hist, k1_launches=4)
+    log(f"  (c) domain dataset, {CAL_CLIP} seed 100 416x240 x "
+        f"{CAL_DOMAIN_FRAMES}, QP {CAL_DOMAIN_QP}: {digits.shape[0]} samples"
+        f" in {secs:.2f} s (full-RD labels, {enc_s:.2f} s); 1 epoch from "
+        f"CKPT_DOMAIN.npz in {train_s:.2f} s, {hist}")
 
-    # card against the CPU port at 64x128 x 2
-    small = dict(h=64, w=128)
+    # card against the CPU port at 64x128 x CAL_SMALL_FRAMES
+    small, n = dict(h=64, w=128), CAL_SMALL_FRAMES
     card, cpu = {}, {}
     for d, res in ((dev, card), (torch.device("cpu"), cpu)):
         want = 4 if d.type == "cuda" else 0
         res["rate"] = _count_k1(f"rate 64x128 on {d.type}",
                                 lambda: calibrate.rate_samples(
-                                    CAL_QP, [CAL_SMALL_CLIP], 2, device=d,
+                                    CAL_QP, [CAL_SMALL_CLIP], n, device=d,
                                     **small), want)
         res["ctx"] = _count_k1(f"ctx 64x128 on {d.type}",
                                lambda: calibrate.ctx_count_table(
-                                   [CAL_QP], [CAL_SMALL_CLIP], 2, device=d,
+                                   [CAL_QP], [CAL_SMALL_CLIP], n, device=d,
                                    log=None, **small), want)
         res["domain"] = _count_k1(f"domain 64x128 on {d.type}",
                                   lambda: calibrate.domain_dataset(
-                                      [CAL_SMALL_CLIP], 1, 2,
+                                      [CAL_SMALL_CLIP], 1, n,
                                       [CAL_DOMAIN_QP], device=d, log=None,
                                       **small), want)
         launches += want * 3
@@ -1345,11 +1372,11 @@ def phase_calibrate(dev):
             or f64["acc"] > TRAIN_ACC:
         fail(f"calibrate 64x128: float64 training card vs CPU beyond "
              f"{TRAIN_F64}: {f64}")
-    stats["card_vs_cpu_64x128x2"] = dict(
+    stats[f"card_vs_cpu_64x128x{n}"] = dict(
         tus=len(card["rate"][0]), fitted=list(calibrate.fit_rate_weights(
             *card["rate"])[0]), samples=int(card["domain"][2].shape[0]),
         train_gaps=gaps)
-    log(f"  {CAL_SMALL_CLIP} 64x128 x 2 card = CPU: {len(card['rate'][0])} "
+    log(f"  {CAL_SMALL_CLIP} 64x128 x {n} card = CPU: {len(card['rate'][0])} "
         f"TUs' features and "
         f"bits, the fit, the context table, the domain dataset "
         f"({card['domain'][2].shape[0]} samples); 1 epoch float32 "
@@ -1363,7 +1390,9 @@ EVAL_CLIP, EVAL_FRAMES = "pink", 8      # phase 16a: the corpus protocol
 # on the CPU at the commit that added this phase
 EVAL_JAX_RECORD = "RD_PINK_CNN_JAX.json"
 EVAL_SMALL_CLIP, EVAL_SMALL_QP = "scene", 32   # 16b: card vs CPU, 64x128
-PROFILE_FRAMES, PROFILE_REPS = 2, 2     # 16c: cut from the tool's 8 and 5/3
+EVAL_SMALL_FRAMES = 1                          # 16b: cut from 2
+EVAL_SMALL_QPS = [EVAL_SMALL_QP]               # 16b: cut from the four
+PROFILE_FRAMES, PROFILE_REPS = 1, 1     # 16c: cut from the tool's 8 and 5/3
 
 
 def _no_time(pts):
@@ -1375,10 +1404,11 @@ def phase_evaluate(dev):
     behind tools/*_torch.py): (a) the corpus protocol on one clip, the
     port's cnn points at 416x240 x 8 and the four QPs against the cached
     HM anchor and pruned HM, the points equal to the JAX tool's;
-    (b) cnn and rd points, one QP of each gap-attribution variant and
-    one frame's syntax-element bits at 64x128 x 2 on the card and on the
-    CPU port, exactly equal; (c) the stage profile at 416x240, cut to 2
-    frames and 2 reps. Returns (stats, K1 launches)."""
+    (b) cnn and rd points at EVAL_SMALL_QPS, one QP of each
+    gap-attribution variant and one frame's syntax-element bits at 64x128
+    x EVAL_SMALL_FRAMES on the card and on the CPU port, exactly equal; (c) the stage profile at
+    416x240, cut to PROFILE_FRAMES and PROFILE_REPS. Returns (stats, K1
+    launches)."""
     import torch
     from hevctpu_torch.models import checkpoint
     from hevctpu_torch.pipeline import clips, evaluate, profile
@@ -1422,10 +1452,11 @@ def phase_evaluate(dev):
         f"; points equal to the JAX tool's ({EVAL_JAX_RECORD})")
     stats["corpus_pink_416x240x8"] = cdoc
 
-    # (b) card against the CPU port at 64x128 x 2
+    # (b) card against the CPU port at 64x128 x EVAL_SMALL_FRAMES
     from hevctpu_torch.codec import headers
     from hevctpu_torch.pipeline.encoder import FrameEncoder
-    ys, us, vs = clips.make_clip(EVAL_SMALL_CLIP, 2, 64, 128)
+    ys, us, vs = clips.make_clip(EVAL_SMALL_CLIP, EVAL_SMALL_FRAMES, 64,
+                                 128)
     cfg = headers.StreamConfig(width=128, height=64, qp=EVAL_SMALL_QP)
     res = {}
     for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
@@ -1438,8 +1469,8 @@ def phase_evaluate(dev):
         r = res[side] = {}
         for mode in ("cnn", "rd"):
             r[mode] = _no_time(run(mode, lambda: evaluate.ours_points(
-                ys, us, vs, qps, mode, params, device=d, log=lambda *a: None),
-                len(qps)))
+                ys, us, vs, EVAL_SMALL_QPS, mode, params, device=d,
+                log=lambda *a: None), len(EVAL_SMALL_QPS)))
         for vname in evaluate.VARIANTS:
             r[vname] = run(vname, lambda: evaluate.variant_points(
                 ys, us, vs, [EVAL_SMALL_QP], vname, device=d,
@@ -1448,21 +1479,23 @@ def phase_evaluate(dev):
             64, 128, EVAL_SMALL_QP, search="rd", device=d).encode(
                 ys, us, vs), 1)
         r["bits"] = evaluate.frame_bit_stats(cfg, out, 0)
-        launches += want_k1 * (2 * len(qps) + len(evaluate.VARIANTS) + 2)
+        launches += want_k1 * (2 * len(EVAL_SMALL_QPS)
+                               + len(evaluate.VARIANTS) + 2)
     for key in res["cpu"]:
         if res["card"][key] != res["cpu"][key]:
             fail(f"evaluate 64x128: {key} differs card vs CPU: "
                  f"{res['card'][key]} against {res['cpu'][key]}")
-    stats["card_vs_cpu_64x128x2"] = res["card"]
-    log(f"  (b) {EVAL_SMALL_CLIP} 64x128 x 2 card = CPU: cnn and rd points "
-        f"at QPs {qps}, the variants {list(evaluate.VARIANTS)} at QP "
+    stats[f"card_vs_cpu_64x128x{EVAL_SMALL_FRAMES}"] = res["card"]
+    log(f"  (b) {EVAL_SMALL_CLIP} 64x128 x {EVAL_SMALL_FRAMES} card = CPU: "
+        f"cnn and rd points "
+        f"at QPs {EVAL_SMALL_QPS}, the variants {list(evaluate.VARIANTS)} at QP "
         f"{EVAL_SMALL_QP}, frame 0's {len(res['card']['bits'])} syntax "
         f"elements' bits ({sum(res['card']['bits'].values()):.1f} in all)")
 
-    # (c) the stage profile, 416x240 cut to 2 frames and 2 reps
+    # (c) the stage profile, 416x240 cut to PROFILE_FRAMES and PROFILE_REPS
     n_k1 = 4 * (2 * (1 + PROFILE_REPS) + 2 + 2 * (1 + PROFILE_REPS) + 1)
     prof, secs = _timed(lambda: _count_k1(
-        "profile 416x240x2", lambda: profile.profile_stages(
+        "profile 416x240", lambda: profile.profile_stages(
             params, frames=PROFILE_FRAMES, device=dev, reps=PROFILE_REPS,
             full_reps=PROFILE_REPS), n_k1))
     launches += n_k1
@@ -1473,7 +1506,7 @@ def phase_evaluate(dev):
                    f"the tool's 8 frames, 5 reps (3 for device_full, "
                    f"entropy_host, fused_total)")
     prof["s"] = secs
-    stats["profile_416x240x2"] = prof
+    stats[f"profile_416x240x{PROFILE_FRAMES}"] = prof
     log(f"  (c) profile 416x240 x {PROFILE_FRAMES}, QP 32, pink (cut: "
         f"{prof['cut']}), {prof['device']}, {secs:.1f} s: stage ms "
         f"{json.dumps(ms)}; SATD {prof['roofline']['satd_stage']}")
@@ -1538,7 +1571,7 @@ def phase_scaling(dev):
                                hash_type="checksum")
     t_a = time.perf_counter()
     tile4, n = phase_sharded(
-        "17a_1088x768_tile4", 4, "gloo", job, want,
+        f"17a_{w}x{h}_tile4", 4, "gloo", job, want,
         decoder.encode_stream(cfg, [want]), cfg, 300,
         want_tally=lambda c: tally_closed_form(h, w, (1, 4), c[1], frames,
                                                dispatched))
@@ -1600,49 +1633,114 @@ def phase_scaling(dev):
     log(f"  17b: tools/scaling_model_torch.py {' '.join(SCALING_ARGV)}: "
         f"{secs_b:.1f} s; every rank's tally the closed form, checksums "
         f"equal, model = formulas; {json.dumps(tool)}")
-    stats = dict(tile4_1088x768=tile4, tool_128x512=tool,
-                 s=time.perf_counter() - t_phase, k1_launches=launches)
+    stats = {f"tile4_{w}x{h}": tile4, "tool_128x512": tool,
+             "s": time.perf_counter() - t_phase, "k1_launches": launches}
     log(f"  phase 17: {stats['s']:.1f} s, K1 {launches} launches")
     return stats, launches
 
 
-BENCH_JOB = dict(point="416x240", h=240, w=416, frames=8, batch=8, reps=1,
+# one frame, held to phase 6's card stream (cut from 8, phase 4's)
+BENCH_JOB = dict(point="416x240", h=240, w=416, frames=1, batch=1, reps=1,
                  warmup="batch")
+# two batches, so that run_all's second dispatch returns while the first
+# batch encodes on the worker (cut from 16 frames in batches of 8)
+BENCH2_JOB = dict(BENCH_JOB, frames=4, batch=2)
+# a dispatch returns in under this share of its batch's time
+DISPATCH_SHARE = 0.1
 
 
-def phase_bench(dev, stream_sd):
-    """Phase 18, bench.py's throughput path through bench_torch.measure at
-    BENCH_JOB: the stream equal to phase 4's, K1 4 launches a batch.
-    Returns (stats, K1 launches)."""
+def phase_bench(dev, stream_one):
+    """Phase 18, bench.py's throughput path through bench_torch.measure:
+    (a) at BENCH_JOB, the stream equal to phase 6's card stream
+    (stream_one); (b) at BENCH2_JOB,
+    run_all's two double-buffered batches, each stream equal to its batch
+    encoded alone (dispatch, collect, encode_stream) one after another,
+    every dispatch returning in under DISPATCH_SHARE of a batch's ms. K1
+    4 launches a batch. Returns (stats, K1 launches)."""
     import bench_torch
+    from hevctpu_torch.codec import decoder, headers
+    from hevctpu_torch.models import convnet2
     from hevctpu_torch.ops import satd_fused
-    job = BENCH_JOB
+    from hevctpu_torch.pipeline.encoder import FrameEncoder
     t_phase = time.perf_counter()
     params, weights = bench_torch._load_params()
+    runs, cuts, launches = {}, {}, 0
+    for key, job in (("a", BENCH_JOB), ("b", BENCH2_JOB)):
+        cuts[key] = bench_torch.cuts(job["point"], job["frames"],
+                                     job["batch"], job["reps"],
+                                     job["warmup"])
+        satd_fused.LAUNCHES = 0
+        fps, rep_fps, run = bench_torch.measure(
+            params, job["h"], job["w"], job["frames"], job["batch"],
+            job["reps"], device=dev, warmup=job["warmup"])
+        batches = run["batches"]
+        want = 4 * (1 + job["reps"] * batches)  # warm-up batch + the reps
+        if run["k1_launches_per_pass"] != 4 * batches or \
+                satd_fused.LAUNCHES != want:
+            fail(f"18{key}: K1 launched {satd_fused.LAUNCHES} times "
+                 f"({run['k1_launches_per_pass']} a pass of {batches} "
+                 f"batches), not {want}")
+        launches += satd_fused.LAUNCHES
+        runs[key] = (fps, rep_fps, run)
+    fps, rep_fps, run = runs["a"]
+    if run["streams"] != [stream_one]:
+        fail(f"18a: bench_torch's stream ({[len(s) for s in run['streams']]}"
+             f" bytes) differs from phase 6's ({len(stream_one)} bytes)")
+
+    job = BENCH2_JOB
+    h, w, b = job["h"], job["w"], job["batch"]
+    y, u, v = bench_torch.synth_clip(job["frames"], h, w)
+    enc = FrameEncoder(h, w, QP, device=dev)
+    cnn = convnet2.load_model(params, dev)
+    cfg = headers.StreamConfig(width=w, height=h, qp=QP,
+                               hash_type="checksum")
+    seq, seq_ms = [], []
     satd_fused.LAUNCHES = 0
-    fps, rep_fps, run = bench_torch.measure(
-        params, job["h"], job["w"], job["frames"], job["batch"], job["reps"],
-        device=dev, warmup=job["warmup"])
-    launches = satd_fused.LAUNCHES
-    if run["streams"] != [stream_sd]:
-        fail(f"18: bench_torch's stream ({[len(s) for s in run['streams']]} "
-             f"bytes) differs from phase 4's ({len(stream_sd)} bytes)")
-    batches = run["batches"]
-    want = 4 * (1 + job["reps"] * batches)      # warm-up batch + the reps
-    if run["k1_launches_per_pass"] != 4 * batches or launches != want:
-        fail(f"18: K1 launched {launches} times ({run['k1_launches_per_pass']}"
-             f" a pass of {batches} batches), not {want}")
-    cut = bench_torch.cuts(job["point"], job["frames"], job["batch"],
-                           job["reps"], job["warmup"])
+    for i in range(0, job["frames"], b):
+        t0 = time.perf_counter()
+        handle = enc.encode_fused_dispatch(cnn, y[i:i + b], u[i:i + b],
+                                           v[i:i + b], lite=True)
+        t1 = time.perf_counter()
+        out = enc.collect(handle, lite=True)
+        t2 = time.perf_counter()
+        seq.append(decoder.encode_stream(cfg, [out]))
+        seq_ms.append(dict(dispatch_ms=(t1 - t0) * 1e3,
+                           batch_ms=(t2 - t0) * 1e3))
+    if satd_fused.LAUNCHES != 4 * len(seq):
+        fail(f"18b: the batches alone launched K1 {satd_fused.LAUNCHES} "
+             f"times, not {4 * len(seq)}")
+    launches += satd_fused.LAUNCHES
+    _, rep_fps2, run2 = runs["b"]
+    if run2["streams"] != seq:
+        fail(f"18b: run_all's streams ({[len(s) for s in run2['streams']]} "
+             f"bytes) differ from the batches encoded one after another "
+             f"({[len(s) for s in seq]} bytes)")
+    batch_ms = min(m["batch_ms"] for m in seq_ms)
+    slow = [t for t in run2["dispatch_ms"] + [m["dispatch_ms"]
+                                               for m in seq_ms]
+            if t > DISPATCH_SHARE * batch_ms]
+    if slow:
+        fail(f"18b: a dispatch took {max(slow):.1f} ms to return, over "
+             f"{DISPATCH_SHARE} of a batch's {batch_ms:.1f} ms")
     stats = dict(fps=fps, rep_fps=rep_fps, rep_s=run["rep_s"],
                  warmup_s=run["warmup_s"],
                  warmup_batch_stage_ms=run["warmup_stage_ms"],
+                 dispatch_ms=run["dispatch_ms"], stream_ms=run["stream_ms"],
                  peak_mem_gib=run["peak_mem_bytes"] / 2 ** 30,
-                 bytes=len(stream_sd), k1_launches=launches, cuts=cut,
-                 card=run["device"], weights=weights,
+                 bytes=len(stream_one), cuts=cuts["a"],
+                 two_batches=dict(
+                     fps=runs["b"][0], rep_s=run2["rep_s"],
+                     dispatch_ms=run2["dispatch_ms"],
+                     stream_ms=run2["stream_ms"],
+                     bytes=[len(s) for s in seq],
+                     one_after_another=seq_ms, cuts=cuts["b"]),
+                 k1_launches=launches, card=run["device"], weights=weights,
                  s=time.perf_counter() - t_phase)
-    log(f"  18: stream byte-identical to phase 4's ({len(stream_sd)} bytes), "
-        f"{fps:.4f} fps; {json.dumps(stats)}")
+    log(f"  18a: stream byte-identical to phase 6's ({len(stream_one)} "
+        f"bytes), {fps:.4f} fps; 18b: two batches double-buffered equal to "
+        f"the batches one after another ({[len(s) for s in seq]} bytes), "
+        f"dispatches returned in {run2['dispatch_ms']} ms against a batch's "
+        f"{batch_ms:.1f} ms; {json.dumps(stats)}")
     return stats, launches
 
 
@@ -1667,7 +1765,11 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
-    log("phase 1: card and build")
+    def log_phase(msg):
+        # the seconds since the start, to budget the script's clock
+        log(f"{msg} [{time.perf_counter() - t_start:.1f} s]")
+
+    log_phase("phase 1: card and build")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -1684,13 +1786,13 @@ def main() -> int:
         f"INT32 instructions/s")
 
     rng = np.random.default_rng(0)
-    log("phase 2: K1 against its plain version on the card "
-        "(tolerance 0: bit-identical)")
+    log_phase("phase 2: K1 against its plain version on the card (tolerance "
+              "0: bit-identical)")
     k1 = phase_k1(rng, dev, sm_hz)
     phase_predict_oracle(rng, dev)
     record_k1_shapes()
 
-    log("phase 3: ConvNet2 labels, card vs CPU (416x240)")
+    log_phase("phase 3: ConvNet2 labels, card vs CPU (416x240)")
     from hevctpu_torch.models import convnet2
     from hevctpu_torch.pipeline import clips
     cnn = load_cnn(dev)
@@ -1706,18 +1808,18 @@ def main() -> int:
              f"{np.argwhere(lab[0] != lab[1])[:4].tolist()}")
     log(f"  labels equal ({lab[0].size} labels)")
 
-    log("phase 4: main path, 416x240 x 8 frames")
+    log_phase("phase 4: main path, 416x240 x 8 frames")
     launches = 0
     torch.cuda.reset_peak_memory_stats()
     sd, out_sd, stream_sd = run_path(240, 416, 8, cnn, dev, "416x240")
     launches += sd["k1_launches"]
 
-    log("phase 5: main path, 1920x1080 x 1 frame")
+    log_phase("phase 5: main path, 1920x1080 x 1 frame")
     torch.cuda.reset_peak_memory_stats()
-    hd, out_hd, stream_hd = run_path(1080, 1920, 1, cnn, dev, "1920x1080")
+    hd, _, _ = run_path(1080, 1920, 1, cnn, dev, "1920x1080")
     launches += hd["k1_launches"]
 
-    log("phase 6: one 416x240 frame, card vs CPU port")
+    log_phase("phase 6: one 416x240 frame, card vs CPU port")
     from hevctpu_torch.codec import decoder, headers
     from hevctpu_torch.pipeline.encoder import FrameEncoder
     cfg = headers.StreamConfig(width=416, height=240, qp=QP,
@@ -1737,23 +1839,25 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         from hevctpu_torch.pipeline import yuv
         yuv.write_yuv420(os.path.join(tmp, "in416.yuv"),
-                         *clips.clip_sine(4, 240, 416, seed=0))
-        log("phase 7: CLI encode --search rd, 416x240 x 4 frames (one "
-            "batch), then decode")
-        cli_rd, _ = phase_cli(tmp, ["--search", "rd"], 4, "cli_rd", 4)
+                         *clips.clip_sine(CLI_FRAMES, 240, 416, seed=0))
+        log_phase(f"phase 7: CLI encode --search rd, 416x240 x {CLI_FRAMES} "
+                  "frames (one batch), then decode")
+        cli_rd, _ = phase_cli(tmp, ["--search", "rd"], CLI_FRAMES, "cli_rd",
+                              4)
         launches += cli_rd["k1_launches"]
         log(f"  cli_rd: {json.dumps(cli_rd)}")
         cli_rd["frame0_card_vs_cpu_bytes"] = rd_frame_card_vs_cpu(tmp, dev)
 
-        log("phase 8: CLI encode, R-λ rate control with per-CTU QP "
-            "(--target-kbps 1000, LCULevelRateControl), 416x240 x 4")
+        log_phase("phase 8: CLI encode, R-λ rate control with per-CTU QP "
+                  "(--target-kbps 1000, LCULevelRateControl), 416x240 x "
+                  f"{CLI_FRAMES}")
         lcu_cfg = os.path.join(tmp, "lcu_rc.cfg")
         with open(lcu_cfg, "w") as f:
             f.write("LCULevelRateControl : 1\n")
         cli_rc, dec = phase_cli(
             tmp, ["-c", lcu_cfg, "--target-kbps", "1000", "--search", "cnn",
-                  "--model", os.path.join(ROOT, "CKPT_DOMAIN.npz")], 4,
-            "cli_rc", 16)
+                  "--model", os.path.join(ROOT, "CKPT_DOMAIN.npz")],
+            CLI_FRAMES, "cli_rc", 4 * CLI_FRAMES)
         launches += cli_rc["k1_launches"]
         ctu_qps = sorted(set(np.concatenate(
             [m.ravel() for m in dec.qp_maps]).tolist()))
@@ -1763,45 +1867,55 @@ def main() -> int:
         log(f"  cli_rc: per-picture QPs {cli_rc['qps']}, coded CTU QPs "
             f"{ctu_qps}, achieved {cli_rc['kbps']} kbps (target 1000)")
 
-        log("phase 9: search=rd with a random per-CTU QP map, 128x192 x 2, "
-            "card vs CPU port")
+        log_phase("phase 9: search=rd with a random per-CTU QP map, 128x192 "
+                  "x 2, card vs CPU port")
         cuqp = phase_cuqp_card_vs_cpu(dev)
         launches += cuqp["k1_launches"]
 
-        log("phase 10: serving options, 416x240 x 4 frames, CNN labels")
+        log_phase(f"phase 10: serving options, 416x240 x {OPTIONS_FRAMES} "
+                  "frames, CNN labels")
         torch.cuda.reset_peak_memory_stats()
-        ctx, _, _ = run_path(240, 416, 4, cnn, dev, "ctx_416x240x4",
+        ctx, _, _ = run_path(240, 416, OPTIONS_FRAMES, cnn, dev,
+                             f"ctx_416x240x{OPTIONS_FRAMES}",
                              rate_model="ctx")
         launches += ctx["k1_launches"]
         torch.cuda.reset_peak_memory_stats()
-        two, _, _ = run_path(240, 416, 4, cnn, dev, "two_pass_416x240x4",
+        two, _, _ = run_path(240, 416, OPTIONS_FRAMES, cnn, dev,
+                             f"two_pass_416x240x{OPTIONS_FRAMES}",
                              want_launches=8, two_pass=True)
         launches += two["k1_launches"]
         lite, n = phase_lite(cnn, dev)
         launches += n
         stage1 = stage1_warm_ms(cnn, dev)
 
-        log("phase 11: ctx and two_pass with search=rd, 128x192 x 2, card "
-            "vs CPU port")
+        log_phase("phase 11: ctx and two_pass with search=rd, 128x192 x 2, "
+                  "card vs CPU port")
         opts, n = phase_options_card_vs_cpu(dev)
         launches += n
 
-        log("phase 12: training; (a) CLI train on the 416x240 x 4 file")
+        log_phase("phase 12: training; (a) CLI train on the 416x240 x "
+                  f"{CLI_FRAMES} file")
         train_cli, n = phase_train_cli(tmp, dev)
         launches += n
         log("  (b, c) ConvNet2 at batch 256 on one 1920x1080 frame, card vs "
             "CPU port, and the warm step")
         train_step = phase_train_step(cnn, dev, sm_hz)
 
-    log("phase 13: the multi-device encoder, ranks spawned on the one card")
+    log_phase("phase 13: the multi-device encoder, ranks spawned on the one "
+              "card")
     sharded = {}
+    cfg_t2 = headers.StreamConfig(width=TILE2_JOB["w"], height=TILE2_JOB["h"],
+                                  qp=QP, hash_type="checksum")
+    out_t2 = FrameEncoder(TILE2_JOB["h"], TILE2_JOB["w"], QP,
+                          device=dev).encode_fused(
+        cnn, *clips.clip_sine(1, TILE2_JOB["h"], TILE2_JOB["w"], seed=0))
+    stream_t2 = decoder.encode_stream(cfg_t2, [out_t2])
     for key, world, backend, job, want, stream, timeout_s in (
             ("13a_416x240x8_frame2", 2, "gloo",
              dict(h=240, w=416, frames=8, tile=1, clip="sine"), out_sd,
              stream_sd, 400),
-            ("13b_1920x1080_tile2", 2, "gloo",
-             dict(h=1080, w=1920, frames=1, tile=2, clip="sine"), out_hd,
-             stream_hd, 500)):
+            (f"13b_{TILE2_JOB['w']}x{TILE2_JOB['h']}_tile2", 2, "gloo",
+             TILE2_JOB, out_t2, stream_t2, 300)):
         sharded[key], n = phase_sharded(
             key, world, backend, job, want, stream,
             headers.StreamConfig(width=job["w"], height=job["h"], qp=QP,
@@ -1816,27 +1930,29 @@ def main() -> int:
         decoder.encode_stream(cfg_c, [want_c]), cfg_c, 200)
     launches += n
 
-    log("phase 14: ops/inter.py on the card against the CPU port (416x240)")
+    log_phase("phase 14: ops/inter.py on the card against the CPU port "
+              "(416x240)")
     inter_res = phase_inter(dev)
 
-    log("phase 15: the calibration path on the card (rate weights, context "
-        "counts, domain CNN), 416x240, then card vs CPU at 64x128")
+    log_phase("phase 15: the calibration path on the card (rate weights, "
+              "context counts, domain CNN), 416x240, then card vs CPU at "
+              "64x128")
     calib, n = phase_calibrate(dev)
     launches += n
 
-    log("phase 16: the evaluation path on the card (corpus RD against the "
-        "cached HM, card vs CPU at 64x128, the stage profile)")
+    log_phase("phase 16: the evaluation path on the card (corpus RD against "
+              "the cached HM, card vs CPU at 64x128, the stage profile)")
     evaluation, n = phase_evaluate(dev)
     launches += n
 
-    log("phase 17: the scaling path (tile-4 mesh, byte tally, "
-        "tools/scaling_model_torch.py)")
+    log_phase("phase 17: the scaling path (tile-4 mesh, byte tally, "
+              "tools/scaling_model_torch.py)")
     scaling, n = phase_scaling(dev)
     launches += n
 
-    log("phase 18: bench.py's throughput path (bench_torch.measure), "
-        "416x240 x 8, one batch, against phase 4")
-    bench_sd, n = phase_bench(dev, stream_sd)
+    log_phase("phase 18: bench.py's throughput path (bench_torch.measure), "
+              "one 416x240 frame against phase 6, and x 4 in two batches")
+    bench_sd, n = phase_bench(dev, streams[0])
     launches += n
 
     unchecked = sorted(K1_LAUNCHED - k1["checked"])
@@ -1855,22 +1971,22 @@ def main() -> int:
                     library_ms=None)]
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"paths": {"416x240": sd, "1920x1080": hd,
-                                "cli_rd_416x240x4": cli_rd,
-                                "cli_rc_416x240x4": cli_rc,
+                                f"cli_rd_416x240x{CLI_FRAMES}": cli_rd,
+                                f"cli_rc_416x240x{CLI_FRAMES}": cli_rc,
                                 "cuqp_128x192x2": cuqp,
-                                "ctx_416x240x4": ctx,
-                                "two_pass_416x240x4": two,
-                                "lite_416x240x4": lite,
-                                "stage1_warm_416x240x4": stage1,
+                                "ctx_416x240": ctx,
+                                "two_pass_416x240": two,
+                                "lite_416x240": lite,
+                                "stage1_warm_416x240": stage1,
                                 "options_128x192x2": opts,
-                                "train_416x240x4": train_cli,
+                                f"train_416x240x{CLI_FRAMES}": train_cli,
                                 "train_step_1080p": train_step,
                                 "sharded": sharded,
                                 "inter_416x240": inter_res,
                                 "calibrate": calib,
                                 "evaluate": evaluation,
                                 "scaling": scaling,
-                                "bench_416x240x8": bench_sd},
+                                "bench_416x240": bench_sd},
                       "k1_build_s": build_s, "k1": k1["shapes"],
                       "sm_clock_hz": sm_hz}))
     print(json.dumps({"kernels": kernels}))

@@ -28,6 +28,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -38,8 +39,12 @@ from hevctpu_torch import rom
 from hevctpu_torch.ops import cost, intra_mm
 
 # Kernel launches since import (or since the caller last reset it): the
-# proof that a run went through the CUDA kernel.
+# proof that a run went through the CUDA kernel. Encoders launch K1 from
+# their dispatch worker threads, so the count and the first build are
+# taken under locks.
 LAUNCHES = 0
+_LAUNCH_LOCK = threading.Lock()
+_LIB_LOCK = threading.Lock()
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCE = _CSRC / "satd_fused.cu"
@@ -126,8 +131,14 @@ def build() -> tuple[float, str]:
     return time.perf_counter() - t0, proc.stderr
 
 
-@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
+    """The built and checked K1 library, loaded once per process."""
+    with _LIB_LOCK:
+        return _load_lib()
+
+
+@functools.lru_cache(maxsize=None)
+def _load_lib() -> ctypes.CDLL:
     build()
     lib = ctypes.CDLL(str(_library_path()))
     fn = lib.hevc_satd_mode_costs
@@ -230,8 +241,13 @@ def mode_satd_costs_ref(refs: torch.Tensor, orig_flat: torch.Tensor, n: int,
                      orig_flat.reshape(m, 1, n, n))
 
 
-def _mode_satd_costs_cuda(refs, orig_flat, n, is_luma):
+def _count_launch():
     global LAUNCHES
+    with _LAUNCH_LOCK:
+        LAUNCHES += 1
+
+
+def _mode_satd_costs_cuda(refs, orig_flat, n, is_luma):
     m, k = refs.shape
     if n not in (4, 8, 16, 32):
         raise ValueError(f"K1 takes n in 4/8/16/32, got {n}")
@@ -257,7 +273,7 @@ def _mode_satd_costs_cuda(refs, orig_flat, n, is_luma):
     if rc != 0:
         raise RuntimeError("K1 launch failed: "
                            + lib.hevc_cuda_error_string(rc).decode())
-    LAUNCHES += 1
+    _count_launch()
     return out
 
 

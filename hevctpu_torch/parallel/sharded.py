@@ -219,7 +219,12 @@ class ShardedEncoder:
 
         Every key's frames are gathered onto every rank of the frame axis
         at the end (gather_frames): bytes the JAX program, whose outputs
-        stay sharded, does not move."""
+        stay sharded, does not move.
+
+        Stage 2's tile collectives (halo exchanges, the width gather) run
+        on the encoder's dispatch worker, one thread a rank, so every
+        rank calls them in the same order; this waits for the dispatch
+        before the frame gather, which runs on the caller's thread."""
         m, enc = self.mesh, self.enc
         b = np.shape(y)[0]
         if b % m.frame:
@@ -229,12 +234,12 @@ class ShardedEncoder:
         own = slice(m.frame_index * per, (m.frame_index + 1) * per)
         y, u, v = (np.asarray(p)[own] for p in (y, u, v))
         if self.cnn is not None:
-            out = enc.encode_fused_dispatch(self.cnn, y, u, v)
+            out = enc.encode_fused_dispatch(self.cnn, y, u, v).result()
         else:
             g = enc.geom
             labels = np.full((per, g.rc * g.cc, 16), self.fixed_depth,
                              np.int8)
-            out = enc.encode_dispatch(y, u, v, labels)
+            out = enc.encode_dispatch(y, u, v, labels).result()
             out["labels"] = torch.as_tensor(labels).to(enc.device)
         return enc.collect({k: m.gather_frames(t) for k, t in out.items()})
 

@@ -28,10 +28,18 @@ boundaries) and the lite transfer (lite=True: the output dict packed on
 the device, unpacked by collect). Under a parallel.Mesh of more than one
 tile (parallel.ShardedEncoder), stage 2 runs on this rank's tile of CTU
 columns, with halo exchanges between the tiles after every diagonal.
+
+The dispatch (encode_dispatch, encode_fused_dispatch) returns once the
+inputs are uploaded, as the JAX package's returns before the device
+finishes: the encode, whose stage 2 plans on the host, runs on one
+worker thread an encoder, in dispatch order, and collect() waits for it.
 """
 
 from __future__ import annotations
 
+import collections.abc
+import concurrent.futures
+import contextlib
 import dataclasses
 import functools
 import time
@@ -873,13 +881,16 @@ def _sse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 class _StageClock:
     """Stage boundary marks of one encode: CUDA events on the card (device
-    time between marks), the host clock on the CPU."""
+    time between marks, recorded on the marking thread's current
+    stream), the host clock on the CPU. A mark named None starts the next
+    stage without closing one: the worker's start, so that a stage does
+    not count the time its encode waited behind an earlier one."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.marks = []
 
-    def mark(self, name: str):
+    def mark(self, name: str | None):
         if self.device.type == "cuda":
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
@@ -888,12 +899,42 @@ class _StageClock:
             self.marks.append((name, time.perf_counter()))
 
     def ms(self) -> dict:
+        pairs = [(a, n, b) for (_, a), (n, b)
+                 in zip(self.marks, self.marks[1:]) if n is not None]
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-            return {n: a.elapsed_time(b) for (_, a), (n, b)
-                    in zip(self.marks, self.marks[1:])}
-        return {n: (b - a) * 1e3 for (_, a), (n, b)
-                in zip(self.marks, self.marks[1:])}
+            return {n: a.elapsed_time(b) for a, n, b in pairs}
+        return {n: (b - a) * 1e3 for a, n, b in pairs}
+
+
+class Dispatch(collections.abc.Mapping):
+    """What encode_dispatch and encode_fused_dispatch return: one encode
+    queued on its encoder's worker thread, standing where its on-device
+    output dict will be. Reading it (a key, iteration, len) waits for the
+    encode and re-raises, with its traceback, whatever the encode raised;
+    result() is the dict itself."""
+
+    def __init__(self, future: concurrent.futures.Future,
+                 clock: _StageClock):
+        self._future = future
+        self.clock = clock
+
+    def done(self) -> bool:
+        """True once the encode has returned or raised (does not wait)."""
+        return self._future.done()
+
+    def result(self) -> dict:
+        """The on-device output dict, waiting for the encode."""
+        return self._future.result()
+
+    def __getitem__(self, key):
+        return self.result()[key]
+
+    def __iter__(self):
+        return iter(self.result())
+
+    def __len__(self):
+        return len(self.result())
 
 
 _OUT_CAST = {"recon_y": torch.uint8, "recon_u": torch.uint8,
@@ -954,7 +995,10 @@ class FrameEncoder:
         self.ts_lam = lam if ts else 0.0
         self.rdoq_lam_c = self.rdoq_lam / w_c
         self.ts_lam_c = self.ts_lam / w_c
-        self._clock = _StageClock(self.device)
+        # one worker thread runs every dispatched encode in dispatch order
+        # (created on first dispatch); _last is the newest dispatch
+        self._worker = None
+        self._last = None
         # a parallel.Mesh of more than one tile runs stage 2 per tile
         # (parallel.ShardedEncoder sets it); stage 1 and the filters stay
         # full-width on every rank
@@ -962,9 +1006,36 @@ class FrameEncoder:
 
     # -- public API --------------------------------------------------------
 
+    def _upload(self, a, dtype) -> torch.Tensor:
+        """A host array as a tensor on the encoder's device that owns its
+        data: the dispatch returns before the worker reads it, and on the
+        CPU torch.as_tensor alone would alias the caller's array."""
+        return torch.as_tensor(np.asarray(a, dtype)).to(self.device,
+                                                         copy=True)
+
     def _to_device(self, *planes):
-        return [torch.as_tensor(np.asarray(p, np.uint8)).to(self.device)
-                for p in planes]
+        return [self._upload(p, np.uint8) for p in planes]
+
+    def _submit(self, clock: _StageClock, fn, *args) -> Dispatch:
+        """Queue fn(*args, clock=clock) on the worker: in grad-free mode,
+        on the encoder's device and its default stream, with the caller's
+        torch thread count (a thread keeps the count it started with)."""
+        if self._worker is None:
+            self._worker = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="FrameEncoder")
+        threads = torch.get_num_threads()
+        dev = (torch.cuda.device(self.device) if self.device.type == "cuda"
+               else contextlib.nullcontext())
+
+        def run():
+            if torch.get_num_threads() != threads:
+                torch.set_num_threads(threads)
+            with torch.no_grad(), dev:
+                clock.mark(None)
+                return fn(*args, clock=clock)
+
+        self._last = Dispatch(self._worker.submit(run), clock)
+        return self._last
 
     def encode(self, y, u, v, labels=None, qp_map=None) -> dict:
         """y [B,H,W], u/v [B,H/2,W/2] uint8-valued; labels [B, rc*cc, 16]
@@ -980,18 +1051,24 @@ class FrameEncoder:
                                16), np.int8)
         return self.collect(self.encode_dispatch(y, u, v, labels, qp_map))
 
-    def encode_dispatch(self, y, u, v, labels, qp_map=None) -> dict:
-        """encode() up to the on-device output dict (tensors); pass it to
-        collect(). labels [B, rc*cc, 16] are required here."""
-        self._clock = _StageClock(self.device)
-        self._clock.mark("start")
+    def encode_dispatch(self, y, u, v, labels, qp_map=None) -> Dispatch:
+        """encode() up to the on-device output dict; labels [B, rc*cc, 16]
+        are required here. Blocks only to check the arguments and upload
+        the planes, labels and map (the upload copies them, so the caller
+        may reuse its arrays at once); stage 1, stage 2 and the filters
+        run on the encoder's worker thread, after any encode dispatched
+        before. Returns a Dispatch; pass it to collect()."""
+        if qp_map is not None and self.shard is not None:
+            raise ValueError("per-CTU QP maps are not supported under tile "
+                             "sharding")
+        clock = _StageClock(self.device)
+        clock.mark("start")
         y, u, v = self._to_device(y, u, v)
-        lab = torch.as_tensor(np.asarray(labels, np.int8)).to(self.device)
+        lab = self._upload(labels, np.int8).to(torch.int32)
         if qp_map is not None:
-            qp_map = torch.as_tensor(np.asarray(qp_map, np.uint8)).to(
-                self.device).to(torch.int32)
-        self._clock.mark("upload")
-        return self._encode_impl(y, u, v, lab.to(torch.int32), qp_map)
+            qp_map = self._upload(qp_map, np.uint8).to(torch.int32)
+        clock.mark("upload")
+        return self._submit(clock, self._encode_impl, y, u, v, lab, qp_map)
 
     def encode_fused(self, cnn, y, u, v, *, lite: bool = False) -> dict:
         """ConvNet2 depth labels + encode on the encoder's device; cnn is a
@@ -1003,36 +1080,49 @@ class FrameEncoder:
                                                        lite=lite), lite=lite)
 
     def encode_fused_dispatch(self, cnn, y, u, v, *,
-                              lite: bool = False) -> dict:
-        """Enqueue the labels + encode and return the on-device output
-        dict (tensors); pass it to collect() with the same lite. Stage 2
-        reads the partition to the host once to plan its steps. lite=True
-        packs the dict on the device for a smaller transfer: no recon
-        planes, levels as int8 + an escape sidecar, bool planes
-        bitpacked."""
-        from hevctpu_torch.models import convnet2
-
+                              lite: bool = False) -> Dispatch:
+        """Queue the labels + encode and return at once, as the JAX
+        package's does, so that the caller can collect and entropy-code
+        one batch while the next one encodes. Blocks only to check that
+        cnn is on the encoder's device and to upload the planes (copied,
+        so the caller may reuse its arrays at once); the labels, stage 1,
+        stage 2 (which reads the partition to the host to plan its steps),
+        the filters and the lite packing run on the encoder's worker
+        thread, after any encode dispatched before. Returns a Dispatch;
+        pass it to collect() with the same lite. lite=True packs the dict
+        on the device for a smaller transfer: no recon planes, levels as
+        int8 + an escape sidecar, bool planes bitpacked."""
         dev = next(cnn.parameters()).device
         if dev != self.device:
             raise ValueError(f"ConvNet2 is on {dev}, the encoder on "
                              f"{self.device}")
-        self._clock = _StageClock(self.device)
-        self._clock.mark("start")
+        clock = _StageClock(self.device)
+        clock.mark("start")
         y, u, v = self._to_device(y, u, v)
-        self._clock.mark("upload")
+        clock.mark("upload")
+        return self._submit(clock, self._encode_fused_impl, cnn, y, u, v,
+                            lite)
+
+    def _encode_fused_impl(self, cnn, y, u, v, lite, *, clock):
+        from hevctpu_torch.models import convnet2
+
         g = self.geom
         labels = convnet2.predict_frame_labels(
             cnn, y.to(torch.int32), u.to(torch.int32), v.to(torch.int32),
             g.h, g.w)
-        self._clock.mark("cnn")
-        out = self._encode_impl(y, u, v, labels.to(torch.int32))
+        clock.mark("cnn")
+        out = self._encode_impl(y, u, v, labels.to(torch.int32),
+                                clock=clock)
         out["labels"] = labels.to(torch.int8)
         return self._pack_lite(out) if lite else out
 
-    def collect(self, dev_out: dict, *, lite: bool = False) -> dict:
-        """Fetch a dispatched output dict to host numpy arrays; lite=True
-        unpacks the lite dict to the standard layout without recon
-        planes."""
+    def collect(self, dev_out, *, lite: bool = False) -> dict:
+        """Fetch a dispatched output (a Dispatch, which this waits for and
+        whose exception it re-raises, or a dict of tensors) to host numpy
+        arrays; lite=True unpacks the lite dict to the standard layout
+        without recon planes."""
+        if isinstance(dev_out, Dispatch):
+            dev_out = dev_out.result()
         out = {k: t.cpu().numpy() for k, t in dev_out.items()}
         out["hash_checksum"] = out["hash_checksum"].astype(np.uint32)
         if lite:
@@ -1041,11 +1131,18 @@ class FrameEncoder:
         return out
 
     def stage_ms(self) -> dict:
-        """Milliseconds of each stage of the last encode (upload, cnn,
-        stage1, stage2, filters; under two_pass also pass1_stage2 and
-        pass2_stage1 between stage1 and stage2), waiting for the device
-        to finish."""
-        return self._clock.ms()
+        """Milliseconds of each stage of the newest dispatched encode
+        (upload, cnn, stage1, stage2, filters; under two_pass also
+        pass1_stage2 and pass2_stage1 between stage1 and stage2), waiting
+        for that encode and the device to finish and re-raising what the
+        encode raised; {} before the first dispatch. An encode's stages
+        start when the worker takes it up; on the card, the upload of a
+        dispatch made while another encode runs shares the stream with
+        that encode's kernels, and its time counts them."""
+        if self._last is None:
+            return {}
+        self._last.result()
+        return self._last.clock.ms()
 
     def _pack_lite(self, out: dict) -> dict:
         """Device-side lite packing of an output dict."""
@@ -1081,11 +1178,8 @@ class FrameEncoder:
 
     # -- implementation ----------------------------------------------------
 
-    def _encode_impl(self, y, u, v, labels, qp_map=None):
+    def _encode_impl(self, y, u, v, labels, qp_map=None, *, clock):
         g = self.geom
-        if qp_map is not None and self.shard is not None:
-            raise ValueError("per-CTU QP maps are not supported under tile "
-                             "sharding")
         yp = pad_plane(y.to(torch.int32), g.hp, g.wp)
         up = pad_plane(u.to(torch.int32), g.hp // 2, g.wp // 2)
         vp = pad_plane(v.to(torch.int32), g.hp // 2, g.wp // 2)
@@ -1103,20 +1197,20 @@ class FrameEncoder:
             return out
 
         dec = self._decide(yp, up, vp, labels)
-        self._clock.mark("stage1")
+        clock.mark("stage1")
         if self.two_pass:
             # Recon feedback (HM decides against reconstructed neighbors
             # mid-search): stage 1 again with boundaries read from the
             # first pass's pre-filter recon, the padded [hp, wp] planes
             # the decoder will approximately see.
             out1 = reconstruct(dec)
-            self._clock.mark("pass1_stage2")
+            clock.mark("pass1_stage2")
             dec = self._decide(yp, up, vp, labels,
                                bsrc=(out1["recon_y"], out1["recon_u"],
                                      out1["recon_v"]))
-            self._clock.mark("pass2_stage1")
+            clock.mark("pass2_stage1")
         out = reconstruct(dec)
-        self._clock.mark("stage2")
+        clock.mark("stage2")
         if qp_map is not None:
             out["qp_ctu"] = self._effective_qp_map(out, qp_map)
         out["depth8"] = from_blocked(dec["depth8"])
@@ -1131,7 +1225,7 @@ class FrameEncoder:
             for k in ("ts4_y", "ts8_u", "ts8_v"):
                 del out[k]
         out = self._loop_filters_and_cast(yp, up, vp, out, dec["tusz_frame"])
-        self._clock.mark("filters")
+        clock.mark("filters")
         return out
 
     def _effective_qp_map(self, out: dict, qp_map: torch.Tensor):

@@ -18,6 +18,7 @@ profile_stages.py, measure_pruned_hm.py).
   keys and operation counts.
 """
 
+import argparse
 import filecmp
 import json
 import os
@@ -51,6 +52,7 @@ import attribute_gap_torch as tgap  # noqa: E402
 import bit_stats as jbits  # noqa: E402
 import bit_stats_torch as tbits  # noqa: E402
 import measure_anchor as janchor  # noqa: E402
+import measure_anchor_torch as tanchor  # noqa: E402
 import measure_corpus as jcorpus  # noqa: E402
 import measure_corpus_torch as tcorpus  # noqa: E402
 import measure_pruned_hm as jpruned  # noqa: E402
@@ -393,6 +395,62 @@ def test_rd_report_matches_jax_tool(tmp_path, monkeypatch):
     assert port.pop("device") == "cpu"
     assert _same_doc(port, ref, ("clip", "generator"))
     assert "bd_rate_pct_rd_vs_pruned_hm" in port
+
+
+def test_anchor_tool_matches_jax_tool(standin, tmp_path, monkeypatch,
+                                     capsys):
+    """tools/measure_anchor_torch.py against tools/measure_anchor.py on the
+    stand-in HM: the same printed lines (one JSON line a QP, then the
+    path written), the same HM inputs and the same document but the
+    clip's generator; neither writes BASELINE_MEASURED.json."""
+    anchor = os.path.join(ROOT, "BASELINE_MEASURED.json")
+    before = open(anchor, "rb").read(), os.stat(anchor).st_mtime_ns
+    out = str(tmp_path / "anchor.json")
+    argv = ["--frames", "2", "--hm", standin, "--qps", "22,37", "--out", out]
+    docs, printed, kept = {}, {}, {}
+    for side, main in (("jax", lambda a: _run_jax_main(monkeypatch, janchor,
+                                                       a)),
+                       ("port", tanchor.main)):
+        monkeypatch.setenv("STANDIN_ASIDE", str(tmp_path / f"aside_{side}"))
+        capsys.readouterr()
+        main(argv)
+        printed[side] = capsys.readouterr().out.splitlines()
+        docs[side] = json.loads(open(out).read())
+        kept[side] = {k: v for k, v in _tree(tmp_path / f"aside_{side}")
+                      .items() if not k.endswith(".cfg")}
+    assert printed["port"] == printed["jax"]
+    assert len(printed["port"]) == 3 and printed["port"][-1] == f"wrote {out}"
+    assert docs["jax"]["clip"]["generator"] == "bench.synth_clip(seed=0)"
+    assert docs["port"]["clip"]["generator"] == \
+        "bench_torch.synth_clip(seed=0)"
+    assert _same_doc(docs["port"], docs["jax"], ("clip", "generator"))
+    assert kept["port"] == kept["jax"]
+    assert (open(anchor, "rb").read(), os.stat(anchor).st_mtime_ns) == before
+
+
+class _Parsed(Exception):
+    """Stops a tool's main once its flags are known."""
+
+
+def test_anchor_tool_defaults_match_jax_tool(monkeypatch):
+    """The JAX tool's flags and defaults, but the output file."""
+    seen = []
+
+    def defaults(parser, args=None, namespace=None):
+        seen.append({a.dest: a.default for a in parser._actions
+                     if a.dest != "help"})
+        raise _Parsed
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", defaults)
+    for main in (janchor.main, tanchor.main):
+        with pytest.raises(_Parsed):
+            main()
+    jax, port = seen
+    assert jax.pop("out") == os.path.join(ROOT, "BASELINE_MEASURED.json")
+    assert port.pop("out") == os.path.join(ROOT,
+                                           "BASELINE_MEASURED_TORCH.json")
+    assert port == jax == {"frames": 8, "hm": "/tmp/hm/bin/TAppEncoderStatic",
+                           "qps": "22,27,32,37"}
 
 
 def test_pruned_hm_tool_matches_jax_tool(standin, tmp_path, monkeypatch):

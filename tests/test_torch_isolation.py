@@ -25,7 +25,8 @@ PORT_TOOLS = ["fit_rate_constants_torch", "fit_ctx_probs_torch",
               "train_cnn_domain_torch", "measure_corpus_torch",
               "measure_rd_torch", "attribute_gap_torch", "bit_stats_torch",
               "profile_stages_torch", "measure_pruned_hm_torch",
-              "scaling_model_torch", "stage2_steps", "train_precision"]
+              "scaling_model_torch", "stage2_steps", "train_precision",
+              "measure_anchor_torch"]
 
 
 def test_port_imports_without_jax_or_reference():
