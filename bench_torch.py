@@ -108,7 +108,9 @@ def measure(params, h, w, frames, batch, reps, qp=QP, *, device=None,
     rep fps and a dict of the run (the last pass's streams, one per
     batch; the warm-up batch's stage ms; each batch's dispatch and
     stream ms in the last pass; peak device memory; K1 launches of one
-    timed pass; the device's label). device is cuda unless the
+    timed pass; stage 2's CUDA graphs, one entry a capture, with its
+    unit, capture ms, nodes and replays (none on the CPU); the device's
+    label). device is cuda unless the
     caller names the CPU; without CUDA it raises. warmup "full" is one
     untimed pass of every batch (bench.py's), "batch" one batch."""
     from hevctpu_torch import get_device
@@ -179,7 +181,10 @@ def measure(params, h, w, frames, batch, reps, qp=QP, *, device=None,
                warmup_stage_ms=stage_ms, **timing,
                k1_launches_per_pass=satd_fused.LAUNCHES - k1_before,
                peak_mem_bytes=(torch.cuda.max_memory_allocated(dev)
-                               if dev.type == "cuda" else None))
+                               if dev.type == "cuda" else None),
+               stage2_graphs=[dict(capture_ms=wf.capture_ms, nodes=wf.nodes,
+                                   replays=wf.replays)
+                              for wf in enc._stage2.values()])
     return fps[len(fps) // 2], fps, run
 
 
@@ -244,6 +249,7 @@ def main(argv=None):
             warmup_batch_stage_ms=run["warmup_stage_ms"],
             dispatch_ms=run["dispatch_ms"], stream_ms=run["stream_ms"],
             peak_mem_bytes=run["peak_mem_bytes"],
+            stage2_graphs=run["stage2_graphs"],
             k1_launches_per_pass=run["k1_launches_per_pass"],
             stream_bytes=[len(s) for s in run["streams"]],
             torch=torch.__version__, cuda=torch.version.cuda))

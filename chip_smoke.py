@@ -117,7 +117,17 @@ Phases (each fails the run with a nonzero exit):
      (the ms to each dispatch's return and each batch's ms are printed);
      K1 launched 4 times a batch at shapes phase 2 held; the fps beside
      each cut from bench.py's defaults and the card's name and power
-     limit.
+     limit;
+ 19. stage 2's two forms on the card, on the arguments phases 4 and 5
+     recorded (416x240 x 8, 1920x1080 x 1): the host-planned form (stage
+     2's plain version) and the traced form (the reference's: the static
+     TU schedule, fire masks on the device), captured anew as CUDA
+     graphs and replayed under torch.cuda.set_sync_debug_mode("error"),
+     so that nothing is read back to the host: all 13 planes equal; the
+     ms of both forms, the capture ms, the graphs' nodes and replays and
+     the peak memory.
+Every encode on the card above runs stage 2 in the traced form from
+CUDA graphs; the card-vs-CPU checks hold it to the CPU's planned form.
 Then one JSON line of the paths, one of the kernels (K1's launches summed
 over the paths 4, 5, 7, 8, 9, 10, 11's card encodes, 12a, 13's ranks,
 15, 16, 17 and 18), the card's name and power limit, and the last line
@@ -1744,6 +1754,48 @@ def phase_bench(dev, stream_one):
     return stats, launches
 
 
+@contextlib.contextmanager
+def record_stage2(store: dict, label: str):
+    """Inside: FrameEncoder._reconstruct stores (encoder, arguments) of
+    its call under store[label], for phase 19."""
+    from hevctpu_torch.pipeline.encoder import FrameEncoder
+    real = FrameEncoder._reconstruct
+
+    def recording(self, *args):
+        store[label] = (self, args)
+        return real(self, *args)
+
+    FrameEncoder._reconstruct = recording
+    try:
+        yield
+    finally:
+        FrameEncoder._reconstruct = real
+
+
+def phase_stage2(recorded: dict) -> dict:
+    """Phase 19, stage 2's two forms on the card, on the arguments phases
+    4 and 5 recorded (tools/stage2_steps.time_forms): the host-planned
+    form (the plain version) and the traced form, captured anew as CUDA
+    graphs and replayed under torch.cuda.set_sync_debug_mode("error")
+    (nothing read back to the host), all 13 planes equal. Per geometry:
+    the planned ms, the ms of the traced call that captures and (416x240
+    only) of one that only replays, the capture ms, the graphs' nodes,
+    the replays and the peak memory of the traced calls."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import stage2_steps
+    res = {}
+    for label, (enc, args) in recorded.items():
+        try:
+            row = stage2_steps.time_forms(enc, args,
+                                          replay=label.startswith("416"))
+        except ValueError as e:
+            fail(f"19 {label}: {e}")
+        log(f"  19 {label}: 13 planes equal, no host sync; "
+            f"{json.dumps(row)}")
+        res[label] = row
+    return res
+
+
 def _np_of(t):
     return t.cpu().numpy() if hasattr(t, "cpu") else np.asarray(t)
 
@@ -1810,13 +1862,16 @@ def main() -> int:
 
     log_phase("phase 4: main path, 416x240 x 8 frames")
     launches = 0
+    stage2_args = {}
     torch.cuda.reset_peak_memory_stats()
-    sd, out_sd, stream_sd = run_path(240, 416, 8, cnn, dev, "416x240")
+    with record_stage2(stage2_args, "416x240x8"):
+        sd, out_sd, stream_sd = run_path(240, 416, 8, cnn, dev, "416x240")
     launches += sd["k1_launches"]
 
     log_phase("phase 5: main path, 1920x1080 x 1 frame")
     torch.cuda.reset_peak_memory_stats()
-    hd, _, _ = run_path(1080, 1920, 1, cnn, dev, "1920x1080")
+    with record_stage2(stage2_args, "1920x1080x1"):
+        hd, _, _ = run_path(1080, 1920, 1, cnn, dev, "1920x1080")
     launches += hd["k1_launches"]
 
     log_phase("phase 6: one 416x240 frame, card vs CPU port")
@@ -1955,6 +2010,11 @@ def main() -> int:
     bench_sd, n = phase_bench(dev, streams[0])
     launches += n
 
+    log_phase("phase 19: stage 2 on the card, the traced form from CUDA "
+              "graphs (no host sync) against the planned form, at phase "
+              "4's and phase 5's arguments")
+    stage2 = phase_stage2(stage2_args)
+
     unchecked = sorted(K1_LAUNCHED - k1["checked"])
     if unchecked:
         fail(f"K1 launched at (n, M, luma) {unchecked}, never held against "
@@ -1986,7 +2046,8 @@ def main() -> int:
                                 "calibrate": calib,
                                 "evaluate": evaluation,
                                 "scaling": scaling,
-                                "bench_416x240": bench_sd},
+                                "bench_416x240": bench_sd,
+                                "stage2_forms": stage2},
                       "k1_build_s": build_s, "k1": k1["shapes"],
                       "sm_clock_hz": sm_hz}))
     print(json.dumps({"kernels": kernels}))

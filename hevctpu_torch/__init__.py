@@ -11,6 +11,7 @@ names the CPU (``device="cpu"``), as the tests do.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 __version__ = "0.1.0"
@@ -34,3 +35,14 @@ def get_device(device=None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def device_table(a, device: torch.device, dtype=None) -> torch.Tensor:
+    """A host table (array-like) as a tensor on device. On a card the copy
+    goes through pinned memory without blocking, so that a table can be
+    made inside a region that must not sync with the host (stage 2's
+    traced form under torch.cuda.set_sync_debug_mode("error"))."""
+    t = torch.as_tensor(np.asarray(a), dtype=dtype)
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

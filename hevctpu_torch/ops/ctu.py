@@ -15,6 +15,8 @@ import functools
 import numpy as np
 import torch
 
+from hevctpu_torch import device_table
+
 _SY, _SX = np.meshgrid(np.arange(8), np.arange(8), indexing="ij")
 _BLK16 = (_SY // 2) * 4 + (_SX // 2)                       # [8,8] -> 0..15
 _QLEADER = ((_SY // 4) * 2) * 4 + ((_SX // 4) * 2)         # quadrant leader
@@ -106,4 +108,68 @@ def boundary_available(oy, ox, n: int, z_tu, ctu_y, ctu_x, h: int, w: int,
     above = ly < 0
     left_of = (lx < 0) & (ly >= 0) & (ly < span)
     decoded = np.where(same_ctu, decoded_same, above | left_of)
+    return inside & decoded
+
+
+@functools.lru_cache(maxsize=None)
+def tu_schedule():
+    """The static per-CTU TU schedule: 84 steps (size, origin_y, origin_x,
+    z of the origin in 4x4 units) in z-order: per 32-quadrant a 32-step,
+    per 16-block inside it a 16-step, per 8-slot inside that an 8-step. A
+    step fires where the partition says a TU of its size starts there
+    (masks decided on the device)."""
+    steps = []
+    z16 = morton(16)
+    for q in range(4):
+        qy, qx = (q // 2) * 32, (q % 2) * 32
+        steps.append((32, qy, qx, int(z16[qy // 4, qx // 4])))
+        for t in range(4):
+            ty, tx = qy + (t // 2) * 16, qx + (t % 2) * 16
+            steps.append((16, ty, tx, int(z16[ty // 4, tx // 4])))
+            for e in range(4):
+                ey, ex = ty + (e // 2) * 8, tx + (e % 2) * 8
+                steps.append((8, ey, ex, int(z16[ey // 4, ex // 4])))
+    return steps
+
+
+def tu_size_for_slot(depth8: torch.Tensor) -> torch.Tensor:
+    """Per-slot luma TU size log2: the CU size clamped to the 32 max TU."""
+    return torch.clamp_max(6 - depth8, 5)
+
+
+@functools.lru_cache(maxsize=None)
+def _morton_t(n: int, device: torch.device) -> torch.Tensor:
+    return device_table(morton(n), device, torch.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def _offsets_t(n: int, device: torch.device):
+    return tuple(device_table(o, device, torch.int64)
+                 for o in boundary_offsets(n))
+
+
+def boundary_available_traced(oy, ox, n: int, ctu_y, ctu_x, h: int, w: int,
+                              scale: int = 1) -> torch.Tensor:
+    """boundary_available with the TU origin (oy, ox) held in integer
+    tensors (broadcast against ctu_y/ctu_x [...]): the TU's z-index comes
+    from the Morton table, kept on the origin's device. Returns the
+    availability [..., 4n+1]."""
+    span = 64 // scale
+    oy, ox = torch.as_tensor(oy), torch.as_tensor(ox)
+    dev = oy.device
+    dy, dx = _offsets_t(n, dev)
+    ly = oy[..., None] + dy
+    lx = ox[..., None] + dx
+    fy = torch.as_tensor(ctu_y, device=dev)[..., None] + ly
+    fx = torch.as_tensor(ctu_x, device=dev)[..., None] + lx
+    inside = (fy >= 0) & (fx >= 0) & (fy < h) & (fx < w)
+
+    same_ctu = (ly >= 0) & (lx >= 0) & (ly < span) & (lx < span)
+    zmap = _morton_t(span // 4, dev)
+    zb = zmap[torch.clamp(ly, 0, span - 1) // 4,
+              torch.clamp(lx, 0, span - 1) // 4]
+    z_tu = torch.take(zmap, oy // 4 * (span // 4) + ox // 4)[..., None]
+    above = ly < 0
+    left_of = (lx < 0) & (ly >= 0) & (ly < span)
+    decoded = torch.where(same_ctu, zb < z_tu, above | left_of)
     return inside & decoded

@@ -175,18 +175,22 @@ def quantize_rdoq(coef: torch.Tensor, log2_size: int, qp, lam, *,
     dscale = 4.0 ** (log2_size - 7)
     lam_u = lam / rate.BITS_ONE
     if isinstance(lam, torch.Tensor):   # per-TU λ [...]: explicit axes
-        lam2, lam1 = lam_u[..., None, None], lam_u[..., None]
+        lam1, lam2, lam3 = (lam_u[(...,) + (None,) * i] for i in (1, 2, 3))
     else:
-        lam2 = lam1 = lam_u
+        lam1 = lam2 = lam3 = lam_u
     wq = rate.bin_weights(rate_qp)
+    lead = l1.shape[:-2]
 
-    def cost(lvl):
+    # The candidates of a TU (and below, its scans and the final pair) go
+    # through one call along a new axis -3, element by element as alone.
+    def cost(lvl):                      # lvl [..., K, N, N]
         deq = dequantize(lvl, log2_size, qp, bit_depth=bit_depth)
-        err = (absc - deq).to(torch.float32)
-        return err * err * dscale + lam2 * rate.level_bits(
-            lvl, k, wq).to(torch.float32)
+        err = (absc[..., None, :, :] - deq).to(torch.float32)
+        return err * err * dscale + lam3 * rate.level_bits(
+            lvl, k[..., None, :, :], wq).to(torch.float32)
 
-    c1, c0, cz = cost(l1), cost(l0), cost(torch.zeros_like(l1))
+    c1, c0, cz = cost(torch.stack([l1, l0, torch.zeros_like(l1)],
+                                  dim=-3)).unbind(-3)
     best = torch.where((c0 < c1) & (l0 < l1), l0, l1)
     cbest = torch.minimum(torch.where(l0 < l1, c0, c1), c1)
     lvl = torch.where(cz <= cbest, 0, best)
@@ -194,55 +198,47 @@ def quantize_rdoq(coef: torch.Tensor, log2_size: int, qp, lam, *,
 
     # CG zeroing: the group's coded cost (+ csbf bin) against all-zero.
     if n > 4:
-        coded_cost = _pool_cg(csel) + lam2 * wq["csbf"]
-        zero_cost = _pool_cg(cz)
+        coded_cost, zero_cost = _pool_cg(torch.stack([csel, cz],
+                                                     dim=-3)).unbind(-3)
+        coded_cost = coded_cost + lam2 * wq["csbf"]
         kill = rate._repeat4(zero_cost < coded_cost)
         lvl = torch.where(kill, 0, lvl)
         csel = torch.where(kill, cz, csel)
 
-    # Last-position optimization over the scan: two cumulative sums.
+    # Last-position optimization over each scan (mode-dependent for
+    # N <= 8: all three, each TU keeping its own): two cumulative sums.
     pos_t, idx_t, lastb = _rdoq_tables(log2_size, wq["last"], coef.device)
     dz = absc.to(torch.float32) ** 2 * dscale       # zero-out distortion
-    mdcs = scan is not None and n <= 8
-    lead = lvl.shape[:-2]
-    keep_any = zero_any = None
-    for s in range(3 if mdcs else 1):
-        idx = idx_t[s]
+    ns = 3 if scan is not None and n <= 8 else 1
 
-        def flat(x):
-            return x.reshape(*lead, n * n)[..., idx]
+    def flat(x):                        # [..., N, N] -> [..., S, N*N]
+        return x.reshape(*lead, n * n)[..., idx_t[:ns]]
 
-        c_scan, z_scan, l_scan = flat(csel), flat(dz), flat(lvl)
-        csum = c_scan.to(torch.float64).cumsum(-1).to(torch.float32)
-        zsum = z_scan.to(torch.float64).cumsum(-1).to(torch.float32)
-        tail_zero = zsum[..., -1:] - zsum
-        j_q = csum + tail_zero + lam1 * (lastb[s] + float(wq["cbf1"]))
-        j_q = torch.where(l_scan != 0, j_q, torch.inf)
-        j_best, q_best = torch.min(j_q, dim=-1)
-        j_zero = zsum[..., -1] + lam_u * float(wq["cbf0"])
-        any_nz = (l_scan != 0).any(dim=-1)
-        keep_s = pos_t[s] <= q_best[..., None, None]
-        zero_s = (~any_nz) | (j_zero < j_best)
-        if not mdcs:
-            keep_any, zero_any = keep_s, zero_s
-        elif keep_any is None:
-            keep_any, zero_any = keep_s, zero_s
-        else:
-            sel = scan == s
-            keep_any = torch.where(sel[..., None, None], keep_s, keep_any)
-            zero_any = torch.where(sel, zero_s, zero_any)
-    lvl = torch.where(zero_any[..., None, None] | ~keep_any, 0, lvl)
+    c_scan, z_scan, l_scan = flat(csel), flat(dz), flat(lvl)
+    csum = c_scan.to(torch.float64).cumsum(-1).to(torch.float32)
+    zsum = z_scan.to(torch.float64).cumsum(-1).to(torch.float32)
+    tail_zero = zsum[..., -1:] - zsum
+    j_q = csum + tail_zero + lam2 * (lastb[:ns] + float(wq["cbf1"]))
+    j_q = torch.where(l_scan != 0, j_q, torch.inf)
+    j_best, q_best = torch.min(j_q, dim=-1)             # [..., S]
+    j_zero = zsum[..., -1] + lam1 * float(wq["cbf0"])
+    any_nz = (l_scan != 0).any(dim=-1)
+    keep = pos_t[:ns] <= q_best[..., None, None]        # [..., S, N, N]
+    zero = (~any_nz) | (j_zero < j_best)                # [..., S]
+    if ns == 3:                         # each TU: its own scan's decision
+        s_tu = scan.long()
+        keep = keep.gather(-3, s_tu[..., None, None, None].expand(
+            *lead, 1, n, n))
+        zero = zero.gather(-1, s_tu[..., None])
+    lvl = torch.where(zero[..., 0, None, None] | ~keep[..., 0, :, :], 0, lvl)
 
     # Final arbitration against hard decision with the full TU estimator.
     hdq = quantize(coef, log2_size, qp, bit_depth=bit_depth).abs()
-
-    def full_j(lv):
-        deq = dequantize(lv, log2_size, qp, bit_depth=bit_depth)
-        d = exact_sq_sum(absc - deq) * dscale
-        return d + lam_u * rate.estimate_tu_bits(
-            lv, log2_size, rate_qp).to(torch.float32)
-
-    take_rdoq = (full_j(lvl) <= full_j(hdq))[..., None, None]
+    pair = torch.stack([lvl, hdq], dim=-3)
+    deq = dequantize(pair, log2_size, qp, bit_depth=bit_depth)
+    j = exact_sq_sum(absc[..., None, :, :] - deq) * dscale + lam1 * (
+        rate.estimate_tu_bits(pair, log2_size, rate_qp).to(torch.float32))
+    take_rdoq = (j[..., 0] <= j[..., 1])[..., None, None]
     lvl = torch.where(take_rdoq, lvl, hdq)
     return torch.where(coef < 0, -lvl, lvl)
 

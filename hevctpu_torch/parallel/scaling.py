@@ -274,7 +274,7 @@ def scaling_markdown(doc: dict, root: str) -> str:
         f"{m['t_ici_s'] / max(m['t_compute_s_at_peak'], 1e-12):.4f}; "
         f"tile-axis efficiency ~{100 * m['tile_axis_efficiency']:.1f}% "
         "(the JAX tool's formula; bounded in practice by the wavefront's "
-        "load imbalance and stage 2's host loop, not bytes).",
+        "load imbalance and stage 2's per-diagonal steps, not bytes).",
         f"* Frame axis (2 hosts): All-Intra frames are independent; with "
         "only the coded stream (~0.2 MB/frame) between hosts the modeled "
         f"2-host efficiency is "

@@ -12,13 +12,18 @@ reconstruction (port of hevctpu/pipeline/encoder.py, main path).
   decoder would: predict -> transform -> RDOQ/TS/SBH -> dequant ->
   inverse -> recon.
 
-The JAX package runs stage 2 as nested lax.scans over every TU step with
-firing masks. Here the diagonal and step loops are Python loops; the
-firing masks and availability vectors depend only on stage 1's partition
-and the geometry, so they are planned on the host once per batch
-(_stage2_plan), uploaded in one copy, and a step that fires for no CTU of
-its diagonal is skipped (a masked step writes nothing). The extended
-recon buffers are updated in place.
+The JAX package runs stage 2 as nested lax.scans over every TU step of
+a static schedule, with fire masks taken on the device. On the card the
+port runs that form (_Wavefront: every diagonal at its fixed width, 424
+masked TU steps a diagonal, TU origins in device tensors), captured once
+per batch size, QP map and tile as CUDA graphs and replayed, with
+nothing read back to the host. On the CPU it runs the plain version of
+stage 2, planned on the host: the fire masks and availability vectors
+depend only on stage 1's partition and the geometry, so they are planned
+once per batch (_stage2_plan), uploaded in one copy, and a step that
+fires for no CTU of its diagonal is skipped (a masked step writes
+nothing). Both update the extended recon buffers in place and give the
+same planes.
 
 The options follow the JAX package: the full-RD quadtree search
 (search="rd"), per-CTU QP maps (qp_map, for LCU-level rate control), the
@@ -31,8 +36,8 @@ columns, with halo exchanges between the tiles after every diagonal.
 
 The dispatch (encode_dispatch, encode_fused_dispatch) returns once the
 inputs are uploaded, as the JAX package's returns before the device
-finishes: the encode, whose stage 2 plans on the host, runs on one
-worker thread an encoder, in dispatch order, and collect() waits for it.
+finishes: the encode runs on one worker thread an encoder, in dispatch
+order, and collect() waits for it.
 """
 
 from __future__ import annotations
@@ -40,15 +45,18 @@ from __future__ import annotations
 import collections.abc
 import concurrent.futures
 import contextlib
+import ctypes
 import dataclasses
 import functools
+import gc
 import time
+import weakref
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from hevctpu_torch import get_device, rom
+from hevctpu_torch import device_table, get_device, rom
 from hevctpu_torch.ops import (ctu, deblock, intra, intra_mm, quant, rate,
                                rate_ctx, rd, sao, satd_fused, transforms)
 from hevctpu_torch.ops.quant import seqsum
@@ -551,20 +559,14 @@ def _block16_schedule():
 
 @functools.lru_cache(maxsize=None)
 def _tu_order():
-    """The z-order TU steps of one CTU as (size, oy, ox): per 32-quadrant
-    a TU32 step, then per 16-block a TU16 step and per 8-slot a TU8 step
-    followed by its four TU4 steps (the JAX scan's order)."""
-    ty, tx = _block16_schedule()[:2]
+    """The z-order TU steps of one CTU as (size, oy, ox): ctu.tu_schedule
+    with each TU8 step followed by its four TU4 steps (the reference's
+    scan order)."""
     steps = []
-    for t in range(16):
-        y, x = int(ty[t]), int(tx[t])
-        if t % 4 == 0:
-            steps.append((32, y, x))
-        steps.append((16, y, x))
-        for e in range(4):
-            ey, ex = y + (e // 2) * 8, x + (e % 2) * 8
-            steps.append((8, ey, ex))
-            steps += [(4, ey + (q // 2) * 4, ex + (q % 2) * 4)
+    for n, oy, ox, _ in ctu.tu_schedule():
+        steps.append((n, oy, ox))
+        if n == 8:
+            steps += [(4, oy + (q // 2) * 4, ox + (q % 2) * 4)
                       for q in range(4)]
     return tuple(steps)
 
@@ -650,63 +652,56 @@ def _lam_on(lam) -> bool:
     return isinstance(lam, torch.Tensor) or lam != 0.0
 
 
-def _tu_step(ext, levels, orig, mode, fire, oy: int, ox: int, n: int,
-             qp, av, *, is_luma: bool, rdoq_lam, dst: bool, ts_lam,
-             rate_qp: int, sbh: bool):
-    """One masked TU at CTU-local origin (oy, ox) for every row:
-    predict -> transform -> RDOQ, or hard-decision quant when rdoq_lam is
-    0.0 (+ the TS trial at 4x4 unless ts_lam is 0.0) -> SBH if sbh ->
-    dequant -> inverse -> recon. Updates ext and levels in place where
-    `fire`.
-
-    ext [R, span+1+span//2, 2span+2] is the extended CTU-local recon
-    (row 0 = above strip, column 0 = left strip, (1+y, 1+x) = pixel
-    (y, x); the extra rows/cols are never-available filler). av [R, 4n+1]
-    is the availability of the boundary samples. qp, rdoq_lam and ts_lam
-    are scalars, or per-row [R] tensors under a per-CTU QP map (the rate
-    tables then stay at the static slice QP rate_qp). Returns (cbf & fire,
-    transform-skip & cbf & fire)."""
-    assert (0 <= oy and oy + 2 * n + 1 <= ext.shape[1]
-            and 0 <= ox and ox + 2 * n + 1 <= ext.shape[2])
-    # boundary in scan order: left column bottom-to-top, corner, top row
-    vals = torch.cat([ext[:, oy + 1: oy + 1 + 2 * n, ox].flip(-1),
-                      ext[:, oy, ox: ox + 2 * n + 1]], dim=1)
+def _tu_chain(vals, av, orig_blk, mode, n: int, qp, *, is_luma: bool,
+              rdoq_lam, dst: bool, ts_lam, rate_qp: int, sbh: bool):
+    """One TU for every row, from its boundary samples vals [R, 4n+1] in
+    scan order (left column bottom-to-top, corner, top row) with their
+    availability av and the source block orig_blk [R, n, n]: predict ->
+    transform -> RDOQ, or hard-decision quant when rdoq_lam is 0.0 (+ the
+    TS trial at 4x4 unless ts_lam is 0.0) -> SBH if sbh -> dequant ->
+    inverse -> recon. qp, rdoq_lam and ts_lam are scalars, or per-row [R]
+    tensors under a per-CTU QP map (the rate tables then stay at the
+    static slice QP rate_qp). Returns (recon, levels, cbf, transform-skip
+    flags or None when the trial is off)."""
     filled = intra.fill_reference(vals, av)
     top_e, left_e = intra.split_boundary(filled, n)
     top_f, left_f = intra.smooth_reference(top_e, left_e, n)
     pred = intra_mm.predict_selected_mode_mm(top_e, left_e, top_f, left_f,
                                              mode, n, is_luma=is_luma)
-    res = orig[:, oy: oy + n, ox: ox + n] - pred
+    res = orig_blk - pred
     log2 = int(np.log2(n))
     coef = transforms.forward_transform(res, log2, dst=dst)
     scan_tu = quant.scan_sel(mode, log2, is_luma)
 
-    def quantize(cf):
+    def quantize(cf, qp_, lam, scan):
         if _lam_on(rdoq_lam):
-            return quant.quantize_rdoq(cf, log2, qp, rdoq_lam, scan=scan_tu,
+            return quant.quantize_rdoq(cf, log2, qp_, lam, scan=scan,
                                        rate_qp=rate_qp)
-        return quant.quantize(cf, log2, qp)
+        return quant.quantize(cf, log2, qp_)
 
-    lvl = quantize(coef)
     use_ts = None
     if n == 4 and _lam_on(ts_lam):
         # transform-skip trial: the scaled residual quantizes in the same
         # dynamic range as the transform, so the two candidates compare
-        # directly in the coefficient domain.
+        # directly in the coefficient domain. Both go through one call,
+        # as rows R..2R-1 after the transform's (rows are independent).
+        def twice(x):
+            return torch.cat([x, x]) if isinstance(x, torch.Tensor) else x
+
         shift = rom.MAX_TR_DYNAMIC_RANGE - 8 - log2
         coef_s = res * (1 << shift)
-        lvl_s = quantize(coef_s)
-        dscale = 4.0 ** (log2 - 7)
-        lam_u = ts_lam / rate.BITS_ONE
-
-        def j_cost(lv, cf):
-            d = quant.exact_sq_sum(cf - quant.dequantize(lv, log2, qp))
-            return d * dscale + lam_u * rate.estimate_tu_bits(
-                lv, log2, rate_qp).to(torch.float32)
-
-        use_ts = j_cost(lvl_s, coef_s) < j_cost(lvl, coef)
-        lvl = torch.where(use_ts[:, None, None], lvl_s, lvl)
+        cf2, qp2 = torch.cat([coef, coef_s]), twice(qp)
+        lvl2 = quantize(cf2, qp2, twice(rdoq_lam), scan_tu.repeat(2))
+        d = quant.exact_sq_sum(cf2 - quant.dequantize(lvl2, log2, qp2))
+        j = d * 4.0 ** (log2 - 7) + twice(ts_lam / rate.BITS_ONE) * (
+            rate.estimate_tu_bits(lvl2, log2, rate_qp).to(torch.float32))
+        j_t, j_s = j.chunk(2)
+        lvl_t, lvl_s = lvl2.chunk(2)
+        use_ts = j_s < j_t
+        lvl = torch.where(use_ts[:, None, None], lvl_s, lvl_t)
         coef = torch.where(use_ts[:, None, None], coef_s, coef)
+    else:
+        lvl = quantize(coef, qp, rdoq_lam, scan_tu)
     if sbh:
         lvl = quant.sign_bit_hide(lvl, coef, log2, qp, scan_tu)
     cbf = (lvl != 0).flatten(1).any(dim=1)
@@ -716,16 +711,80 @@ def _tu_step(ext, levels, orig, mode, fire, oy: int, ox: int, n: int,
         shift = rom.MAX_TR_DYNAMIC_RANGE - 8 - log2
         rinv = torch.where(use_ts[:, None, None],
                            (deq + (1 << (shift - 1))) >> shift, rinv)
-    recon = torch.clamp(pred + rinv, 0, 255)
+    return torch.clamp(pred + rinv, 0, 255), lvl, cbf, use_ts
 
+
+def _flags(cbf, use_ts, fire):
+    """(cbf & fire, transform-skip & cbf & fire)."""
+    cbf = cbf & fire
+    return cbf, (use_ts & cbf if use_ts is not None
+                 else torch.zeros_like(cbf))
+
+
+def _tu_step(ext, levels, orig, mode, fire, oy: int, ox: int, n: int,
+             qp, av, *, is_luma: bool, rdoq_lam, dst: bool, ts_lam,
+             rate_qp: int, sbh: bool):
+    """One masked TU at the static CTU-local origin (oy, ox) for every row
+    (_tu_chain), written into ext and levels in place where `fire`.
+
+    ext [R, span+1+span//2, 2span+2] is the extended CTU-local recon
+    (row 0 = above strip, column 0 = left strip, (1+y, 1+x) = pixel
+    (y, x); the extra rows/cols are never-available filler). av [R, 4n+1]
+    is the availability of the boundary samples. Returns (cbf & fire,
+    transform-skip & cbf & fire)."""
+    assert (0 <= oy and oy + 2 * n + 1 <= ext.shape[1]
+            and 0 <= ox and ox + 2 * n + 1 <= ext.shape[2])
+    vals = torch.cat([ext[:, oy + 1: oy + 1 + 2 * n, ox].flip(-1),
+                      ext[:, oy, ox: ox + 2 * n + 1]], dim=1)
+    recon, lvl, cbf, use_ts = _tu_chain(
+        vals, av, orig[:, oy: oy + n, ox: ox + n], mode, n, qp,
+        is_luma=is_luma, rdoq_lam=rdoq_lam, dst=dst, ts_lam=ts_lam,
+        rate_qp=rate_qp, sbh=sbh)
     fb = fire[:, None, None]
     win = ext[:, oy + 1: oy + 1 + n, ox + 1: ox + 1 + n]
     win.copy_(torch.where(fb, recon, win))
     lwin = levels[:, oy: oy + n, ox: ox + n]
     lwin.copy_(torch.where(fb, lvl, lwin))
-    cbf = cbf & fire
-    return cbf, (use_ts & cbf if use_ts is not None
-                 else torch.zeros_like(cbf))
+    return _flags(cbf, use_ts, fire)
+
+
+@functools.lru_cache(maxsize=None)
+def _arange_t(n: int, device: torch.device) -> torch.Tensor:
+    return torch.arange(n, device=device)
+
+
+def _tu_step_dyn(ext, levels, orig, mode, fire, oy, ox, n: int, qp, av_z, *,
+                 is_luma: bool, ctu_yx, frame_hw, rdoq_lam=0.0,
+                 sbh: bool = False, dst: bool = False, ts_lam=0.0,
+                 rate_qp: int | None = None):
+    """_tu_step at an origin held in integer tensors oy, ox (one element
+    each) on ext's device, as the reference's scan bodies run it: the
+    windows are index gathers, the write a masked index write, and the
+    availability the static decoded-before mask av_z [4n+1] joined here
+    to the in-picture check of the CTUs at picture origins ctu_yx
+    ([R], [R]) in a frame_hw plane. Nothing reads back to the host."""
+    if rate_qp is None:
+        if not quant.is_static_qp(qp):
+            raise ValueError("a per-row qp needs an explicit static rate_qp")
+        rate_qp = int(qp)
+    ar = _arange_t(2 * n + 1, ext.device)
+    oy, ox = oy.reshape(1), ox.reshape(1)
+    vals = torch.cat([ext[:, oy + 1 + ar[: 2 * n], ox].flip(-1),
+                      ext[:, oy, ox + ar]], dim=1)
+    dy, dx = ctu._offsets_t(n, ext.device)
+    fy = ctu_yx[0][:, None] + oy + dy
+    fx = ctu_yx[1][:, None] + ox + dx
+    inside = (fy >= 0) & (fx >= 0) & (fy < frame_hw[0]) & (fx < frame_hw[1])
+    rows, cols = (oy + ar[:n])[:, None], (ox + ar[:n])[None, :]
+    recon, lvl, cbf, use_ts = _tu_chain(
+        vals, inside & av_z, orig[:, rows, cols], mode, n, qp,
+        is_luma=is_luma, rdoq_lam=rdoq_lam, dst=dst, ts_lam=ts_lam,
+        rate_qp=rate_qp, sbh=sbh)
+    fb = fire[:, None, None]
+    ext[:, rows + 1, cols + 1] = torch.where(fb, recon,
+                                             ext[:, rows + 1, cols + 1])
+    levels[:, rows, cols] = torch.where(fb, lvl, levels[:, rows, cols])
+    return _flags(cbf, use_ts, fire)
 
 
 # The JAX encoder's per-CTU λ scale jnp.exp2(Δ/3) in float32, as XLA
@@ -790,6 +849,361 @@ def _tile_edges(ry: torch.Tensor, ru: torch.Tensor, rv: torch.Tensor):
     planes = (ry, ru, rv)
     return (torch.cat([p[:, :, -1, :, -1] for p in planes], dim=-1),
             torch.cat([p[:, :, 0, -1, :] for p in planes], dim=-1))
+
+
+def _diag_ext(ry, ru, rv, bi, ri, ci, cl: int, halos=None):
+    """The extended local buffers (ext_y [R, 97, 130], ext_c [2R, 49, 66],
+    chroma rows U then V; _make_ext) of CTUs (bi, ri, ci) [R] from the
+    blocked recon (ry, ru, rv) [B, rc, cl, n, n], ci local to a tile of cl
+    columns: the above strip (corner + above + above-right) and the left
+    strip, read at clamped indices (availability masks them later). At
+    the tile's edges the neighbors come from halos (halo_l, halo_r)
+    [B, rc, 64 + 32 + 32] when given."""
+    rim = torch.clamp_min(ri - 1, 0)
+    cim = torch.clamp_min(ci - 1, 0)
+    cip = torch.clamp_max(ci + 1, cl - 1)
+    at_l = (ci == 0)[:, None]
+    at_r = (ci == cl - 1)[:, None]
+
+    def strips(rp, span, lo):
+        corner = rp[bi, rim, cim, span - 1, span - 1][:, None]
+        above_r = rp[bi, rim, cip, span - 1, :]
+        left = rp[bi, ri, cim, :, span - 1]
+        if halos is not None:
+            hl = halos[0][..., lo: lo + span]
+            hr = halos[1][..., lo: lo + span]
+            corner = torch.where(at_l, hl[bi, rim, span - 1:], corner)
+            above_r = torch.where(at_r, hr[bi, rim], above_r)
+            left = torch.where(at_l, hl[bi, ri], left)
+        top = torch.cat([corner, rp[bi, rim, ci, span - 1, :], above_r],
+                        dim=-1)
+        return top, left
+
+    top_y, left_y = strips(ry, 64, 0)
+    top_u, left_u = strips(ru, 32, 64)
+    top_v, left_v = strips(rv, 32, 96)
+    return (_make_ext(top_y, left_y, 64),
+            _make_ext(torch.cat([top_u, top_v]), torch.cat([left_u, left_v]),
+                      32))
+
+
+# captures kept per FrameEncoder, the least recently used dropped first
+_GRAPH_CACHE = 4
+
+
+@functools.lru_cache(maxsize=None)
+def _schedule_t(device: torch.device) -> dict:
+    """_block16_schedule's tables on device: the 16-blocks' origins
+    (int64) and the decoded-before masks of their substeps."""
+    ty, tx, _, *av = _block16_schedule()
+    names = ("av32", "av32c", "av16", "av16c", "av8", "av8c", "av4")
+    tabs = {k: device_table(a, device) for k, a in zip(names, av)}
+    tabs["ty"] = device_table(ty, device, torch.int64)
+    tabs["tx"] = device_table(tx, device, torch.int64)
+    return tabs
+
+
+def _pick(arr: torch.Tensor, sy, sx) -> torch.Tensor:
+    """arr[:, sy, sx] at one-element index tensors -> [R]."""
+    return arr[:, sy, sx][:, 0]
+
+
+def _put_slot(arr: torch.Tensor, sy, sx, fire, val):
+    """arr[:, sy, sx] = val where fire, at one-element index tensors."""
+    arr[:, sy, sx] = torch.where(fire, val, _pick(arr, sy, sx))[:, None]
+
+
+def _graph_nodes(graph) -> int | None:
+    """Node count of a captured graph kept with keep_graph=True
+    (cuGraphGetNodes from libcuda), or None where libcuda cannot be
+    loaded or refuses."""
+    try:
+        lib = ctypes.CDLL("libcuda.so.1")
+    except OSError:
+        return None
+    n = ctypes.c_size_t(0)
+    rc = lib.cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()), None,
+                             ctypes.byref(n))
+    return n.value if rc == 0 else None
+
+
+class _Wavefront:
+    """The reference's stage 2 (hevctpu/pipeline/encoder.py,
+    _reconstruct) for one encoder, batch size, tile and QP-map presence.
+
+    Every diagonal of Geometry.wavefront_tiled runs at its fixed width A,
+    inactive rows masked, through the full static schedule of a CTU
+    (ctu.tu_schedule, each TU8 step followed by its four TU4 steps): 424
+    masked _tu_step_dyn calls a diagonal, fire masks taken on the device
+    from the leaf-TU-size and coded-slot maps, TU origins read from device
+    tables at device counters (d: diagonal, q: quadrant, t: 16-block).
+    A diagonal is four segments: _open gathers its CTUs' strips, blocks,
+    maps and QPs, _quad runs a quadrant's TU32 step, _block a 16-block's
+    TU16, TU8 and TU4 steps, _close scatters the results, inactive rows
+    to the spare CTU row rc (the reference drops them out of range), and
+    steps d. Everything a segment hands the next lives in a static buffer
+    (self.buf, allocated by the first diagonal), so that on the card the
+    segments are captured once as CUDA graphs, one a segment, and
+    replayed D, 4D, 16D and D times; on the CPU they run eagerly. Nothing
+    reads back to the host."""
+
+    def __init__(self, enc, b: int, device: torch.device, tiles: int = 1,
+                 ti: int = 0):
+        g = enc.geom
+        # a proxy: the encoder owns its wavefronts (enc._stage2), and a
+        # cycle would leave their graphs to the garbage collector
+        self.enc = weakref.proxy(enc)
+        self.b, self.device = b, device
+        self.rc, self.cl = g.rc, g.cc // tiles
+        self.tiled = tiles > 1
+        act_r, act_c, act_m = (t[ti] for t in g.wavefront_tiled(tiles))
+        self.diagonals, self.a = act_r.shape
+        i64 = functools.partial(device_table, device=device,
+                                dtype=torch.int64)
+        self.act_r, self.act_c = i64(act_r), i64(act_c)
+        self.act_cl = i64(np.where(act_m, act_c - ti * self.cl, 0))
+        self.act_m = device_table(act_m, device)
+        self.bi = torch.arange(b, device=device).repeat_interleave(self.a)
+        self.d, self.q, self.t = (torch.zeros(1, dtype=torch.int64,
+                                              device=device)
+                                  for _ in range(3))
+        self.sched = _schedule_t(device)
+        self.buf = {}
+        self.qps = None
+
+        def zeros(n, dtype=torch.int32):
+            return torch.zeros((b, self.rc + 1, self.cl, n, n), dtype=dtype,
+                               device=device)
+
+        # the reconstruction, blocked, with a spare CTU row rc
+        self.state = {"recon_y": zeros(64), "recon_u": zeros(32),
+                      "recon_v": zeros(32), "levels_y": zeros(64),
+                      "levels_u": zeros(32), "levels_v": zeros(32)}
+        for k, n in (("cbf_y", 8), ("cbf_u", 8), ("cbf_v", 8),
+                     ("cbf4_y", 16), ("ts4_y", 16), ("ts8_u", 8),
+                     ("ts8_v", 8)):
+            self.state[k] = zeros(n, torch.bool)
+        # on the card: the graphs of one diagonal in replay order, and
+        # what their capture cost
+        self.plan = None
+        self.capture_ms = None
+        self.nodes = None
+        self.replays = 0
+
+    def _put(self, name: str, value: torch.Tensor) -> torch.Tensor:
+        """Copy value into the static buffer `name` (made by the first
+        call, with value's shape and dtype); returns the buffer."""
+        buf = self.buf.get(name)
+        if buf is None:
+            buf = self.buf[name] = value.clone()
+        else:
+            buf.copy_(value)
+        return buf
+
+    # -- segments ----------------------------------------------------------
+
+    def _open(self):
+        """Gather diagonal d's CTUs into the diagonal's buffers; reset the
+        quadrant and block counters."""
+        b, a, B, st, bi = self.b, self.a, self.buf, self.state, self.bi
+
+        def rows(table):               # diagonal d's entries, every frame
+            return table[self.d].reshape(a).repeat(b)
+
+        # ci is the GLOBAL column (picture coordinates), cil the tile's
+        ri, ci, cil = rows(self.act_r), rows(self.act_c), rows(self.act_cl)
+        ext_y, ext_c = _diag_ext(
+            st["recon_y"], st["recon_u"], st["recon_v"], bi, ri, cil,
+            self.cl, (B["halo_l"], B["halo_r"]) if self.tiled else None)
+        new = dict(ri=ri, cil=cil, mk=rows(self.act_m), ext_y=ext_y,
+                   ext_c=ext_c, oyl=B["in_y"][bi, ri, cil],
+                   ouv=torch.cat([B["in_u"][bi, ri, cil],
+                                  B["in_v"][bi, ri, cil]]),
+                   ctu_y=ri * 64, ctu_x=ci * 64, ctu_yc=(ri * 32).repeat(2),
+                   ctu_xc=(ci * 32).repeat(2))
+        for k in ("tz", "c8", "msl", "cm8", "mm4"):
+            new[k] = B["in_" + k][bi, ri, cil]
+        flags = torch.zeros_like(new["c8"], dtype=torch.bool)
+        flags4 = torch.zeros_like(new["mm4"], dtype=torch.bool)
+        new.update(vy=torch.zeros_like(new["oyl"]),
+                   vc=torch.zeros_like(new["ouv"]), cy8=flags,
+                   cc8=flags.repeat(2, 1, 1), tc8=flags.repeat(2, 1, 1),
+                   cy4=flags4, ty4=flags4)
+        for k, v in new.items():
+            self._put(k, v)
+        qps = self.enc._ctu_qps(B.get("in_qp_map"), bi, ri, ci)
+        self.qps = tuple(self._put(f"qp{i}", v)
+                         if isinstance(v, torch.Tensor) else v
+                         for i, v in enumerate(qps))
+        self.q.zero_()
+        self.t.zero_()
+
+    def _tu(self, n: int, oy, ox, av, av_c):
+        """The luma and chroma TU steps of size n at origin (oy, ox): luma
+        fires where the slot's leaf TU is n, chroma there too and, at
+        n = 8, under a TU4 leaf (its chroma TU is 4x4)."""
+        enc, g, B = self.enc, self.enc.geom, self.buf
+        qp_l, qp_c2, rl_y, rl_c, tl_y, tl_c = self.qps
+        sy, sx = oy // 8, ox // 8
+        leaf, coded = _pick(B["tz"], sy, sx), _pick(B["c8"], sy, sx) & B["mk"]
+        log2 = n.bit_length() - 1
+        fire = (leaf == log2) & coded
+        fire_c = (((leaf <= 3) & coded) if n == 8 else fire).repeat(2)
+        cbf, _ = _tu_step_dyn(
+            B["ext_y"], B["vy"], B["oyl"], _pick(B["msl"], sy, sx), fire, oy,
+            ox, n, qp_l, av, is_luma=True, ctu_yx=(B["ctu_y"], B["ctu_x"]),
+            frame_hw=(g.h, g.w), rdoq_lam=rl_y, sbh=enc.sbh, rate_qp=enc.qp)
+        _put_slot(B["cy8"], sy, sx, fire, cbf)
+        cbf, ts = _tu_step_dyn(
+            B["ext_c"], B["vc"], B["ouv"], _pick(B["cm8"], sy, sx).repeat(2),
+            fire_c, oy // 2, ox // 2, n // 2, qp_c2, av_c, is_luma=False,
+            ctu_yx=(B["ctu_yc"], B["ctu_xc"]), frame_hw=(g.h // 2, g.w // 2),
+            rdoq_lam=rl_c, sbh=enc.sbh, ts_lam=tl_c, rate_qp=enc.qp_c)
+        _put_slot(B["cc8"], sy, sx, fire_c, cbf)
+        _put_slot(B["tc8"], sy, sx, fire_c, ts)
+
+    def _quad(self):
+        """Quadrant q's TU32 step (at its leader block 4q)."""
+        s, t = self.sched, self.q * 4
+        self._tu(32, s["ty"][t], s["tx"][t], s["av32"][t][0],
+                 s["av32c"][t][0])
+        self.q += 1
+
+    def _block(self):
+        """16-block t's TU16 step, then per 8-slot in z-order its TU8 step
+        and its four TU4 steps (NxN PUs or a TU split: mode4 holds either
+        mode)."""
+        enc, s, t, B = self.enc, self.sched, self.t, self.buf
+        ty, tx = s["ty"][t], s["tx"][t]
+        self._tu(16, ty, tx, s["av16"][t][0], s["av16c"][t][0])
+        for e in range(4):
+            ey, ex = ty + (e // 2) * 8, tx + (e % 2) * 8
+            self._tu(8, ey, ex, s["av8"][t][0, e], s["av8c"][t][0, e])
+            if not (enc.nxn or enc.tu_split):
+                continue
+            sy, sx = ey // 8, ex // 8
+            fire = ((_pick(B["tz"], sy, sx) == 2) & _pick(B["c8"], sy, sx)
+                    & B["mk"])
+            qp_l, _, rl_y, _, tl_y, _ = self.qps
+            for q in range(4):
+                oy, ox = ey + (q // 2) * 4, ex + (q % 2) * 4
+                s4y, s4x = oy // 4, ox // 4
+                cbf, ts = _tu_step_dyn(
+                    B["ext_y"], B["vy"], B["oyl"], _pick(B["mm4"], s4y, s4x),
+                    fire, oy, ox, 4, qp_l, s["av4"][t][0, e, q],
+                    is_luma=True, ctu_yx=(B["ctu_y"], B["ctu_x"]),
+                    frame_hw=(enc.geom.h, enc.geom.w), rdoq_lam=rl_y,
+                    sbh=enc.sbh, dst=True, ts_lam=tl_y, rate_qp=enc.qp)
+                _put_slot(B["cy4"], s4y, s4x, fire, cbf)
+                _put_slot(B["ty4"], s4y, s4x, fire, ts)
+        self.t += 1
+
+    def _close(self):
+        """Scatter the diagonal's results into the state (inactive rows
+        into the spare row, where their duplicate indices are harmless)
+        and step d."""
+        B, st, ba = self.buf, self.state, self.bi.shape[0]
+        idx = (self.bi, torch.where(B["mk"], B["ri"], self.rc), B["cil"])
+        for k, v in (("recon_y", B["ext_y"][:, 1:65, 1:65]),
+                     ("recon_u", B["ext_c"][:ba, 1:33, 1:33]),
+                     ("recon_v", B["ext_c"][ba:, 1:33, 1:33]),
+                     ("levels_y", B["vy"]), ("levels_u", B["vc"][:ba]),
+                     ("levels_v", B["vc"][ba:]), ("cbf_y", B["cy8"]),
+                     ("cbf_u", B["cc8"][:ba]), ("cbf_v", B["cc8"][ba:]),
+                     ("cbf4_y", B["cy4"]), ("ts4_y", B["ty4"]),
+                     ("ts8_u", B["tc8"][:ba]), ("ts8_v", B["tc8"][ba:])):
+            st[k][idx] = v
+        self.d += 1
+
+    # -- driving -----------------------------------------------------------
+
+    def _capture(self):
+        """Capture the segments as CUDA graphs on a side stream, after one
+        eager run of each segment that makes the buffers and warms the
+        tables and libraries (and leaves state and counters for run() to
+        reset). The capture tolerates other threads' CUDA calls (the
+        caller of a dispatch uploads meanwhile). The garbage collector
+        stays off meanwhile: a graph it destroyed on this thread would
+        invalidate the capture. A failure raises."""
+        dev = self.device
+        cur = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(cur)
+        t0 = time.perf_counter()
+        segments = (self._open, self._quad, self._block, self._close)
+        graphs, nodes = [], []
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(side):
+                for fn in segments:
+                    fn()
+                pool = torch.cuda.graph_pool_handle()
+                for fn in segments:
+                    gr = torch.cuda.CUDAGraph(keep_graph=True)
+                    gr.capture_begin(pool=pool,
+                                     capture_error_mode="thread_local")
+                    try:
+                        fn()
+                    except BaseException:
+                        with contextlib.suppress(Exception):
+                            gr.capture_end()
+                        raise
+                    gr.capture_end()
+                    nodes.append(_graph_nodes(gr))
+                    gr.instantiate()
+                    graphs.append(gr)
+        finally:
+            if collecting:
+                gc.enable()
+        cur.wait_stream(side)
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        self.nodes = None if None in nodes else sum(nodes)
+        g_open, g_quad, g_block, g_close = graphs
+        self.plan = [g_open] + ([g_quad] + [g_block] * 4) * 4 + [g_close]
+
+    def run(self, inputs: dict, shard=None) -> dict:
+        """Stage 2 of one batch: inputs {y, u, v: blocked source planes;
+        tz, c8, msl, cm8, mm4: the tile's blocked maps; qp_map (optional):
+        [B, rc, cc]}; shard a parallel.Mesh whose halos are exchanged
+        between diagonals (outside the graphs, copied into the halo
+        buffers). Returns the 13 output planes, owning their memory."""
+        for k, v in inputs.items():
+            self._put("in_" + k, v)
+        if self.tiled:
+            z = torch.zeros((self.b, self.rc, 128), dtype=torch.int32,
+                            device=self.device)
+            self._put("halo_l", z), self._put("halo_r", z)
+        graphs = self.device.type == "cuda"
+        if graphs and self.plan is None:
+            self._capture()
+        for t in self.state.values():
+            t.zero_()
+        self.d.zero_()
+        for d in range(self.diagonals):
+            if shard is not None and d:
+                # every tile, every diagonal: the exchange is collective
+                halo_l, halo_r = shard.exchange(*_tile_edges(
+                    *(self.state[k][:, : self.rc]
+                      for k in ("recon_y", "recon_u", "recon_v"))))
+                self._put("halo_l", halo_l), self._put("halo_r", halo_r)
+            if graphs:
+                for gr in self.plan:
+                    gr.replay()
+                self.replays += len(self.plan)
+            else:
+                self._open()
+                for _ in range(4):
+                    self._quad()
+                    for _ in range(4):
+                        self._block()
+                self._close()
+        out = {}
+        for k, t in self.state.items():
+            o = from_blocked(t[:, : self.rc])
+            out[k] = o.clone() if o._base is not None else o
+        return out
 
 
 def _checksum_plane(plane: torch.Tensor) -> torch.Tensor:
@@ -999,19 +1413,35 @@ class FrameEncoder:
         # (created on first dispatch); _last is the newest dispatch
         self._worker = None
         self._last = None
+        self._copy_stream = None
         # a parallel.Mesh of more than one tile runs stage 2 per tile
         # (parallel.ShardedEncoder sets it); stage 1 and the filters stay
         # full-width on every rank
         self.shard = None
+        # stage 2's captured wavefronts on the card, by (batch, QP map,
+        # tile), least recently used first
+        self._stage2 = collections.OrderedDict()
 
     # -- public API --------------------------------------------------------
 
     def _upload(self, a, dtype) -> torch.Tensor:
         """A host array as a tensor on the encoder's device that owns its
         data: the dispatch returns before the worker reads it, and on the
-        CPU torch.as_tensor alone would alias the caller's array."""
-        return torch.as_tensor(np.asarray(a, dtype)).to(self.device,
-                                                         copy=True)
+        CPU torch.as_tensor alone would alias the caller's array. On the
+        card the copy runs from pinned memory on a side stream, so that it
+        does not wait behind the kernels (stage 2's graph replays) queued
+        on the encoder's stream, which waits for the copy instead."""
+        host = torch.as_tensor(np.asarray(a, dtype))
+        if self.device.type != "cuda":
+            return host.clone()
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        main = torch.cuda.default_stream(self.device)
+        with torch.cuda.stream(self._copy_stream):
+            t = host.pin_memory().to(self.device, non_blocking=True)
+        t.record_stream(main)
+        main.wait_stream(self._copy_stream)
+        return t
 
     def _to_device(self, *planes):
         return [self._upload(p, np.uint8) for p in planes]
@@ -1086,9 +1516,8 @@ class FrameEncoder:
         one batch while the next one encodes. Blocks only to check that
         cnn is on the encoder's device and to upload the planes (copied,
         so the caller may reuse its arrays at once); the labels, stage 1,
-        stage 2 (which reads the partition to the host to plan its steps),
-        the filters and the lite packing run on the encoder's worker
-        thread, after any encode dispatched before. Returns a Dispatch;
+        stage 2, the filters and the lite packing run on the encoder's
+        worker thread, after any encode dispatched before. Returns a Dispatch;
         pass it to collect() with the same lite. lite=True packs the dict
         on the device for a smaller transfer: no recon planes, levels as
         int8 + an escape sidecar, bool planes bitpacked."""
@@ -1338,7 +1767,7 @@ class FrameEncoder:
                 d8f == 0, tz[64], torch.where(d8f == 1, tz[32], torch.where(
                     d8f == 2, tz[16], tz[8])))
         else:
-            tusz_frame = torch.clamp_max(6 - d8f, 5)
+            tusz_frame = ctu.tu_size_for_slot(d8f)
         tusz_frame = torch.where(nxn8_frame, 2, tusz_frame).to(torch.int32)
 
         return dict(mode_slot=mode_slot,
@@ -1409,9 +1838,55 @@ class FrameEncoder:
 
     def _reconstruct(self, yp, up, vp, mode_slot, cmode_slot, tusz_slot,
                      coded8, mode4_blk, qp_map=None, shard=None):
-        """Wavefront reconstruction: diagonals in order, the planned TU
-        steps of each in z-order. qp_map [B, rc, cc] gives each CTU its
-        own QP and λs.
+        """Stage 2, the wavefront reconstruction. On the card the
+        reference's traced form, replayed from CUDA graphs captured once
+        per (batch, QP map or not, tile) and cached on the encoder
+        (_reconstruct_traced); on the CPU its plain version, the
+        host-planned form (_reconstruct_planned). Both give the same 13
+        planes."""
+        fn = (self._reconstruct_traced if yp.device.type == "cuda"
+              else self._reconstruct_planned)
+        return fn(yp, up, vp, mode_slot, cmode_slot, tusz_slot, coded8,
+                  mode4_blk, qp_map, shard)
+
+    def _reconstruct_traced(self, yp, up, vp, mode_slot, cmode_slot,
+                            tusz_slot, coded8, mode4_blk, qp_map=None,
+                            shard=None):
+        """The reference's stage 2 (_Wavefront): every diagonal at its
+        fixed width, the full static TU schedule with fire masks taken on
+        the device. On the card its segments replay captured CUDA graphs,
+        with nothing read back to the host; on the CPU they run eagerly.
+        Arguments and outputs as _reconstruct_planned's."""
+        b = yp.shape[0]
+        tiles, ti = (1, 0) if shard is None else (shard.tile,
+                                                  shard.tile_index)
+        cl = self.geom.cc // tiles
+        own = slice(ti * cl, ti * cl + cl)
+        inputs = dict(y=to_blocked(yp, 64), u=to_blocked(up, 32),
+                      v=to_blocked(vp, 32), tz=tusz_slot, c8=coded8,
+                      msl=mode_slot, cm8=cmode_slot, mm4=mode4_blk)
+        inputs = {k: t[:, :, own] for k, t in inputs.items()}
+        if qp_map is not None:
+            inputs["qp_map"] = qp_map
+        if yp.device.type != "cuda":
+            return _Wavefront(self, b, yp.device, tiles, ti).run(inputs,
+                                                                 shard)
+        key = (b, qp_map is not None, tiles, ti)
+        wf = self._stage2.pop(key, None)
+        if wf is None:
+            wf = _Wavefront(self, b, yp.device, tiles, ti)
+        self._stage2[key] = wf
+        while len(self._stage2) > _GRAPH_CACHE:
+            self._stage2.popitem(last=False)
+        return wf.run(inputs, shard)
+
+    def _reconstruct_planned(self, yp, up, vp, mode_slot, cmode_slot,
+                             tusz_slot, coded8, mode4_blk, qp_map=None,
+                             shard=None):
+        """Stage 2's plain version, planned on the host: the partition
+        is read back (_stage2_plan) and each diagonal runs only the TU
+        steps some of its CTUs fire, in z-order. qp_map [B, rc, cc] gives
+        each CTU its own QP and λs.
 
         shard (a parallel.Mesh with more than one tile) runs this rank's
         tile of cc/tiles CTU columns: the inputs stay global, the state
@@ -1464,34 +1939,9 @@ class FrameEncoder:
             ba = bi.shape[0]
             if ba == 0:
                 continue
-            rim = torch.clamp_min(ri - 1, 0)
-            cim = torch.clamp_min(ci - 1, 0)
-            cip = torch.clamp_max(ci + 1, cl - 1)
-            at_l = (ci == 0)[:, None]
-            at_r = (ci == cl - 1)[:, None]
-
-            def strips(rp, span, lo):
-                # neighbor strips (clamped indices; masked by availability);
-                # at the tile's edges the neighbors come from the halos
-                corner = rp[bi, rim, cim, span - 1, span - 1][:, None]
-                above_r = rp[bi, rim, cip, span - 1, :]
-                left = rp[bi, ri, cim, :, span - 1]
-                if shard is not None:
-                    hl = halo_l[..., lo: lo + span]
-                    hr = halo_r[..., lo: lo + span]
-                    corner = torch.where(at_l, hl[bi, rim, span - 1:], corner)
-                    above_r = torch.where(at_r, hr[bi, rim], above_r)
-                    left = torch.where(at_l, hl[bi, ri], left)
-                top = torch.cat([corner, rp[bi, rim, ci, span - 1, :],
-                                 above_r], dim=-1)
-                return top, left
-
-            top_y, left_y = strips(ry, 64, 0)
-            top_u, left_u = strips(ru, 32, 64)
-            top_v, left_v = strips(rv, 32, 96)
-            ext_y = _make_ext(top_y, left_y, 64)
-            ext_c = _make_ext(torch.cat([top_u, top_v]),
-                              torch.cat([left_u, left_v]), 32)
+            ext_y, ext_c = _diag_ext(ry, ru, rv, bi, ri, ci, cl,
+                                     None if shard is None
+                                     else (halo_l, halo_r))
             oyl = oy_b[bi, ri, ci]                             # [BA, 64, 64]
             ouv = torch.cat([ou_b[bi, ri, ci], ov_b[bi, ri, ci]])
             msl = mode_slot[bi, ri, ci]                        # [BA, 8, 8]

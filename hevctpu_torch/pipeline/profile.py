@@ -228,11 +228,12 @@ def profile_markdown(doc: dict) -> str:
             "INT32 on the CUDA cores; the stage is its launches and the "
             "candidate RD around them.",
             f"* **Stage-2 wavefront** runs {roof['wavefront_steps']} "
-            "diagonals in order, each a host loop of the TU steps its "
-            "CTUs fire: "
+            "diagonals in order, each 424 masked TU steps (on the card "
+            "replayed from CUDA graphs; on the CPU only the steps its "
+            "CTUs fire): "
             f"{tr['achieved_tflops'] * 1e3:.4f} GFLOP/s on the transform "
-            "math: far from any FLOP or byte bound; the time is the host "
-            "loop of small launches (the device's idle share is not "
+            "math: far from any FLOP or byte bound; the time is the "
+            "steps' small kernels (the device's idle share is not "
             "measured here).",
         ]
     lines += [
