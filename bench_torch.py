@@ -108,17 +108,18 @@ def measure(params, h, w, frames, batch, reps, qp=QP, *, device=None,
     rep fps and a dict of the run (the last pass's streams, one per
     batch; the warm-up batch's stage ms; each batch's dispatch and
     stream ms in the last pass; peak device memory; K1 launches of one
-    timed pass; stage 2's CUDA graphs, one entry a capture, with its
-    unit, capture ms, nodes and replays (none on the CPU); the device's
-    label). device is cuda unless the
-    caller names the CPU; without CUDA it raises. warmup "full" is one
-    untimed pass of every batch (bench.py's), "batch" one batch."""
+    timed pass; stage 2's counters over the run, trace.counters()'s
+    stage2.* keys: captures, capture ms, graph nodes, replays and
+    evictions (all 0 on the CPU); the device's label). device is cuda
+    unless the caller names the CPU; without CUDA it raises. warmup
+    "full" is one untimed pass of every batch (bench.py's), "batch" one
+    batch."""
     from hevctpu_torch import get_device
     from hevctpu_torch.codec import decoder as streamlib
     from hevctpu_torch.codec import headers
     from hevctpu_torch.models import convnet2
     from hevctpu_torch.ops import satd_fused
-    from hevctpu_torch.pipeline import evaluate
+    from hevctpu_torch.pipeline import evaluate, trace
     from hevctpu_torch.pipeline.encoder import FrameEncoder
 
     if warmup not in ("full", "batch"):
@@ -126,6 +127,7 @@ def measure(params, h, w, frames, batch, reps, qp=QP, *, device=None,
     if reps < 1:
         raise ValueError(f"reps must be at least 1, got {reps}")
     dev = get_device(device)
+    counted = trace.counters()
     y, u, v = synth_clip(frames, h, w)
     enc = FrameEncoder(h, w, qp, device=dev)
     cnn = convnet2.load_model(params, dev)
@@ -182,9 +184,9 @@ def measure(params, h, w, frames, batch, reps, qp=QP, *, device=None,
                k1_launches_per_pass=satd_fused.LAUNCHES - k1_before,
                peak_mem_bytes=(torch.cuda.max_memory_allocated(dev)
                                if dev.type == "cuda" else None),
-               stage2_graphs=[dict(capture_ms=wf.capture_ms, nodes=wf.nodes,
-                                   replays=wf.replays)
-                              for wf in enc._stage2.values()])
+               stage2_counters={k: v - counted[k]
+                                for k, v in trace.counters().items()
+                                if k.startswith("stage2.")})
     return fps[len(fps) // 2], fps, run
 
 
@@ -249,7 +251,7 @@ def main(argv=None):
             warmup_batch_stage_ms=run["warmup_stage_ms"],
             dispatch_ms=run["dispatch_ms"], stream_ms=run["stream_ms"],
             peak_mem_bytes=run["peak_mem_bytes"],
-            stage2_graphs=run["stage2_graphs"],
+            stage2_counters=run["stage2_counters"],
             k1_launches_per_pass=run["k1_launches_per_pass"],
             stream_bytes=[len(s) for s in run["streams"]],
             torch=torch.__version__, cuda=torch.version.cuda))

@@ -18,10 +18,12 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import time
 
 import numpy as np
 
 from hevctpu_torch import rom
+from hevctpu_torch.pipeline import trace
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _BUILD = os.path.join(_DIR, "_build")
@@ -107,10 +109,13 @@ def encode_slice_data(width: int, height: int, qp: int,
 
     Byte-identical to codec/syntax.py SliceEncoder minus the slice header
     (tests/test_native_entropy.py asserts equality on every stream).
+    Counts the call and its host ms, the library's load apart
+    (trace.counters(): cabac.calls, cabac.ms).
     """
     lib = _load()
     if lib is None:
         raise RuntimeError(f"native entropy unavailable: {_lib_err}")
+    t0 = time.perf_counter_ns()
     d8 = np.ascontiguousarray(frame["depth8"][i], np.int32)
     m8 = frame["mode8"][i]
     if "mode4" in frame:
@@ -166,4 +171,7 @@ def encode_slice_data(width: int, height: int, qp: int,
             "(a CTU with no coded cbf must carry the predicted QP)")
     if n < 0:
         raise RuntimeError("native entropy: output overflow")
-    return bytes(bytearray(out)[:n])
+    data = bytes(bytearray(out)[:n])
+    trace.count("cabac.calls")
+    trace.count("cabac.ms", (time.perf_counter_ns() - t0) * 1e-6)
+    return data

@@ -37,7 +37,10 @@ columns, with halo exchanges between the tiles after every diagonal.
 The dispatch (encode_dispatch, encode_fused_dispatch) returns once the
 inputs are uploaded, as the JAX package's returns before the device
 finishes: the encode runs on one worker thread an encoder, in dispatch
-order, and collect() waits for it.
+order, and collect() waits for it. Each dispatch carries its record
+(Dispatch.trace, pipeline/trace.py): host spans of the caller's upload and
+collect, of the worker's stages and of every stage-2 diagonal, and the
+stage clock.
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ from hevctpu_torch import device_table, get_device, rom
 from hevctpu_torch.ops import (ctu, deblock, intra, intra_mm, quant, rate,
                                rate_ctx, rd, sao, satd_fused, transforms)
 from hevctpu_torch.ops.quant import seqsum
+from hevctpu_torch.pipeline import trace
 
 # ---------------------------------------------------------------------------
 # Geometry
@@ -983,12 +987,8 @@ class _Wavefront:
                      ("cbf4_y", 16), ("ts4_y", 16), ("ts8_u", 8),
                      ("ts8_v", 8)):
             self.state[k] = zeros(n, torch.bool)
-        # on the card: the graphs of one diagonal in replay order, and
-        # what their capture cost
+        # on the card: the graphs of one diagonal in replay order
         self.plan = None
-        self.capture_ms = None
-        self.nodes = None
-        self.replays = 0
 
     def _put(self, name: str, value: torch.Tensor) -> torch.Tensor:
         """Copy value into the static buffer `name` (made by the first
@@ -1124,7 +1124,8 @@ class _Wavefront:
         reset). The capture tolerates other threads' CUDA calls (the
         caller of a dispatch uploads meanwhile). The garbage collector
         stays off meanwhile: a graph it destroyed on this thread would
-        invalidate the capture. A failure raises."""
+        invalidate the capture. A failure raises. Counts the capture, its
+        ms and the graphs' nodes (trace.counters())."""
         dev = self.device
         cur = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
@@ -1158,8 +1159,10 @@ class _Wavefront:
             if collecting:
                 gc.enable()
         cur.wait_stream(side)
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
-        self.nodes = None if None in nodes else sum(nodes)
+        trace.count("stage2.captures")
+        trace.count("stage2.capture_ms", (time.perf_counter() - t0) * 1e3)
+        if None not in nodes:
+            trace.count("stage2.graph_nodes", sum(nodes))
         g_open, g_quad, g_block, g_close = graphs
         self.plan = [g_open] + ([g_quad] + [g_block] * 4) * 4 + [g_close]
 
@@ -1168,7 +1171,9 @@ class _Wavefront:
         tz, c8, msl, cm8, mm4: the tile's blocked maps; qp_map (optional):
         [B, rc, cc]}; shard a parallel.Mesh whose halos are exchanged
         between diagonals (outside the graphs, copied into the halo
-        buffers). Returns the 13 output planes, owning their memory."""
+        buffers). Returns the 13 output planes, owning their memory.
+        Inside a dispatch, the capture and each diagonal are spans of its
+        record (trace.py); the replays are counted."""
         for k, v in inputs.items():
             self._put("in_" + k, v)
         if self.tiled:
@@ -1177,28 +1182,30 @@ class _Wavefront:
             self._put("halo_l", z), self._put("halo_r", z)
         graphs = self.device.type == "cuda"
         if graphs and self.plan is None:
-            self._capture()
+            with trace.span("stage2.capture"):
+                self._capture()
         for t in self.state.values():
             t.zero_()
         self.d.zero_()
         for d in range(self.diagonals):
-            if shard is not None and d:
-                # every tile, every diagonal: the exchange is collective
-                halo_l, halo_r = shard.exchange(*_tile_edges(
-                    *(self.state[k][:, : self.rc]
-                      for k in ("recon_y", "recon_u", "recon_v"))))
-                self._put("halo_l", halo_l), self._put("halo_r", halo_r)
-            if graphs:
-                for gr in self.plan:
-                    gr.replay()
-                self.replays += len(self.plan)
-            else:
-                self._open()
-                for _ in range(4):
-                    self._quad()
+            with trace.diagonal():
+                if shard is not None and d:
+                    # every tile, every diagonal: the exchange is collective
+                    halo_l, halo_r = shard.exchange(*_tile_edges(
+                        *(self.state[k][:, : self.rc]
+                          for k in ("recon_y", "recon_u", "recon_v"))))
+                    self._put("halo_l", halo_l), self._put("halo_r", halo_r)
+                if graphs:
+                    for gr in self.plan:
+                        gr.replay()
+                    trace.count("stage2.replays", len(self.plan))
+                else:
+                    self._open()
                     for _ in range(4):
-                        self._block()
-                self._close()
+                        self._quad()
+                        for _ in range(4):
+                            self._block()
+                    self._close()
         out = {}
         for k, t in self.state.items():
             o = from_blocked(t[:, : self.rc])
@@ -1293,45 +1300,24 @@ def _sse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (d * d).sum(dim=(-2, -1)).to(torch.float32)
 
 
-class _StageClock:
-    """Stage boundary marks of one encode: CUDA events on the card (device
-    time between marks, recorded on the marking thread's current
-    stream), the host clock on the CPU. A mark named None starts the next
-    stage without closing one: the worker's start, so that a stage does
-    not count the time its encode waited behind an earlier one."""
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.marks = []
-
-    def mark(self, name: str | None):
-        if self.device.type == "cuda":
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks.append((name, ev))
-        else:
-            self.marks.append((name, time.perf_counter()))
-
-    def ms(self) -> dict:
-        pairs = [(a, n, b) for (_, a), (n, b)
-                 in zip(self.marks, self.marks[1:]) if n is not None]
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-            return {n: a.elapsed_time(b) for a, n, b in pairs}
-        return {n: (b - a) * 1e3 for a, n, b in pairs}
-
-
 class Dispatch(collections.abc.Mapping):
     """What encode_dispatch and encode_fused_dispatch return: one encode
     queued on its encoder's worker thread, standing where its on-device
     output dict will be. Reading it (a key, iteration, len) waits for the
     encode and re-raises, with its traceback, whatever the encode raised;
-    result() is the dict itself."""
+    result() is the dict itself. trace is the dispatch's record
+    (pipeline/trace.py: its spans, its stage clock, stage 2's diagonal
+    events), freed with the handle."""
 
     def __init__(self, future: concurrent.futures.Future,
-                 clock: _StageClock):
+                 record: trace.Record):
         self._future = future
-        self.clock = clock
+        self.trace = record
+
+    @property
+    def clock(self) -> trace.StageClock:
+        """The record's stage clock."""
+        return self.trace.clock
 
     def done(self) -> bool:
         """True once the encode has returned or raised (does not wait)."""
@@ -1446,10 +1432,11 @@ class FrameEncoder:
     def _to_device(self, *planes):
         return [self._upload(p, np.uint8) for p in planes]
 
-    def _submit(self, clock: _StageClock, fn, *args) -> Dispatch:
-        """Queue fn(*args, clock=clock) on the worker: in grad-free mode,
-        on the encoder's device and its default stream, with the caller's
-        torch thread count (a thread keeps the count it started with)."""
+    def _submit(self, rec: trace.Record, fn, *args) -> Dispatch:
+        """Queue fn(*args) on the worker: in grad-free mode, on the
+        encoder's device and its default stream, with the caller's torch
+        thread count (a thread keeps the count it started with), rec the
+        current record there, under its span "worker"."""
         if self._worker is None:
             self._worker = concurrent.futures.ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="FrameEncoder")
@@ -1460,11 +1447,11 @@ class FrameEncoder:
         def run():
             if torch.get_num_threads() != threads:
                 torch.set_num_threads(threads)
-            with torch.no_grad(), dev:
-                clock.mark(None)
-                return fn(*args, clock=clock)
+            with torch.no_grad(), dev, trace.active(rec), rec.span("worker"):
+                rec.clock.mark(None)
+                return fn(*args)
 
-        self._last = Dispatch(self._worker.submit(run), clock)
+        self._last = Dispatch(self._worker.submit(run), rec)
         return self._last
 
     def encode(self, y, u, v, labels=None, qp_map=None) -> dict:
@@ -1488,17 +1475,18 @@ class FrameEncoder:
         may reuse its arrays at once); stage 1, stage 2 and the filters
         run on the encoder's worker thread, after any encode dispatched
         before. Returns a Dispatch; pass it to collect()."""
-        if qp_map is not None and self.shard is not None:
-            raise ValueError("per-CTU QP maps are not supported under tile "
-                             "sharding")
-        clock = _StageClock(self.device)
-        clock.mark("start")
-        y, u, v = self._to_device(y, u, v)
-        lab = self._upload(labels, np.int8).to(torch.int32)
-        if qp_map is not None:
-            qp_map = self._upload(qp_map, np.uint8).to(torch.int32)
-        clock.mark("upload")
-        return self._submit(clock, self._encode_impl, y, u, v, lab, qp_map)
+        rec = trace.Record(self.device)
+        with rec.span("dispatch"):
+            if qp_map is not None and self.shard is not None:
+                raise ValueError("per-CTU QP maps are not supported under "
+                                 "tile sharding")
+            rec.clock.mark("start")
+            y, u, v = self._to_device(y, u, v)
+            lab = self._upload(labels, np.int8).to(torch.int32)
+            if qp_map is not None:
+                qp_map = self._upload(qp_map, np.uint8).to(torch.int32)
+            rec.clock.mark("upload")
+        return self._submit(rec, self._encode_impl, y, u, v, lab, qp_map)
 
     def encode_fused(self, cnn, y, u, v, *, lite: bool = False) -> dict:
         """ConvNet2 depth labels + encode on the encoder's device; cnn is a
@@ -1521,37 +1509,41 @@ class FrameEncoder:
         pass it to collect() with the same lite. lite=True packs the dict
         on the device for a smaller transfer: no recon planes, levels as
         int8 + an escape sidecar, bool planes bitpacked."""
-        dev = next(cnn.parameters()).device
-        if dev != self.device:
-            raise ValueError(f"ConvNet2 is on {dev}, the encoder on "
-                             f"{self.device}")
-        clock = _StageClock(self.device)
-        clock.mark("start")
-        y, u, v = self._to_device(y, u, v)
-        clock.mark("upload")
-        return self._submit(clock, self._encode_fused_impl, cnn, y, u, v,
-                            lite)
+        rec = trace.Record(self.device)
+        with rec.span("dispatch"):
+            dev = next(cnn.parameters()).device
+            if dev != self.device:
+                raise ValueError(f"ConvNet2 is on {dev}, the encoder on "
+                                 f"{self.device}")
+            rec.clock.mark("start")
+            y, u, v = self._to_device(y, u, v)
+            rec.clock.mark("upload")
+        return self._submit(rec, self._encode_fused_impl, cnn, y, u, v, lite)
 
-    def _encode_fused_impl(self, cnn, y, u, v, lite, *, clock):
+    def _encode_fused_impl(self, cnn, y, u, v, lite):
         from hevctpu_torch.models import convnet2
 
         g = self.geom
-        labels = convnet2.predict_frame_labels(
-            cnn, y.to(torch.int32), u.to(torch.int32), v.to(torch.int32),
-            g.h, g.w)
-        clock.mark("cnn")
-        out = self._encode_impl(y, u, v, labels.to(torch.int32),
-                                clock=clock)
+        with trace.stage("cnn"):
+            labels = convnet2.predict_frame_labels(
+                cnn, y.to(torch.int32), u.to(torch.int32), v.to(torch.int32),
+                g.h, g.w)
+        out = self._encode_impl(y, u, v, labels.to(torch.int32))
         out["labels"] = labels.to(torch.int8)
-        return self._pack_lite(out) if lite else out
+        if not lite:
+            return out
+        with trace.span("pack"):
+            return self._pack_lite(out)
 
     def collect(self, dev_out, *, lite: bool = False) -> dict:
         """Fetch a dispatched output (a Dispatch, which this waits for and
         whose exception it re-raises, or a dict of tensors) to host numpy
         arrays; lite=True unpacks the lite dict to the standard layout
-        without recon planes."""
+        without recon planes. A Dispatch's collect is a span of its
+        record."""
         if isinstance(dev_out, Dispatch):
-            dev_out = dev_out.result()
+            with dev_out.trace.span("collect"):
+                return self.collect(dev_out.result(), lite=lite)
         out = {k: t.cpu().numpy() for k, t in dev_out.items()}
         out["hash_checksum"] = out["hash_checksum"].astype(np.uint32)
         if lite:
@@ -1571,7 +1563,7 @@ class FrameEncoder:
         if self._last is None:
             return {}
         self._last.result()
-        return self._last.clock.ms()
+        return self._last.trace.stage_ms()
 
     def _pack_lite(self, out: dict) -> dict:
         """Device-side lite packing of an output dict."""
@@ -1607,11 +1599,11 @@ class FrameEncoder:
 
     # -- implementation ----------------------------------------------------
 
-    def _encode_impl(self, y, u, v, labels, qp_map=None, *, clock):
+    def _encode_impl(self, y, u, v, labels, qp_map=None):
+        """Stage 1, stage 2 and the filters of one batch on the device, each
+        a stage of the current record (trace.stage: a span, then the stage
+        clock's mark) inside a dispatch."""
         g = self.geom
-        yp = pad_plane(y.to(torch.int32), g.hp, g.wp)
-        up = pad_plane(u.to(torch.int32), g.hp // 2, g.wp // 2)
-        vp = pad_plane(v.to(torch.int32), g.hp // 2, g.wp // 2)
 
         def reconstruct(dec):
             out = self._reconstruct(yp, up, vp, dec["mode_slot"],
@@ -1625,36 +1617,40 @@ class FrameEncoder:
                 out = {k: self.shard.gather_width(t) for k, t in out.items()}
             return out
 
-        dec = self._decide(yp, up, vp, labels)
-        clock.mark("stage1")
+        with trace.stage("stage1"):
+            yp = pad_plane(y.to(torch.int32), g.hp, g.wp)
+            up = pad_plane(u.to(torch.int32), g.hp // 2, g.wp // 2)
+            vp = pad_plane(v.to(torch.int32), g.hp // 2, g.wp // 2)
+            dec = self._decide(yp, up, vp, labels)
         if self.two_pass:
             # Recon feedback (HM decides against reconstructed neighbors
             # mid-search): stage 1 again with boundaries read from the
             # first pass's pre-filter recon, the padded [hp, wp] planes
             # the decoder will approximately see.
-            out1 = reconstruct(dec)
-            clock.mark("pass1_stage2")
-            dec = self._decide(yp, up, vp, labels,
-                               bsrc=(out1["recon_y"], out1["recon_u"],
-                                     out1["recon_v"]))
-            clock.mark("pass2_stage1")
-        out = reconstruct(dec)
-        clock.mark("stage2")
-        if qp_map is not None:
-            out["qp_ctu"] = self._effective_qp_map(out, qp_map)
-        out["depth8"] = from_blocked(dec["depth8"])
-        out["coded8"] = from_blocked(dec["coded8"])
-        out["mode8"] = dec["mode8_frame"]
-        out["csel8"] = dec["csel8_frame"]
-        out["nxn8"] = dec["nxn8_frame"]
-        out["mode4"] = dec["mode4_frame"]
-        if self.tu_split:
-            out["tusz8"] = dec["tusz_frame"]
-        if not self.ts:
-            for k in ("ts4_y", "ts8_u", "ts8_v"):
-                del out[k]
-        out = self._loop_filters_and_cast(yp, up, vp, out, dec["tusz_frame"])
-        clock.mark("filters")
+            with trace.stage("pass1_stage2"):
+                out1 = reconstruct(dec)
+            with trace.stage("pass2_stage1"):
+                dec = self._decide(yp, up, vp, labels,
+                                   bsrc=(out1["recon_y"], out1["recon_u"],
+                                         out1["recon_v"]))
+        with trace.stage("stage2"):
+            out = reconstruct(dec)
+        with trace.stage("filters"):
+            if qp_map is not None:
+                out["qp_ctu"] = self._effective_qp_map(out, qp_map)
+            out["depth8"] = from_blocked(dec["depth8"])
+            out["coded8"] = from_blocked(dec["coded8"])
+            out["mode8"] = dec["mode8_frame"]
+            out["csel8"] = dec["csel8_frame"]
+            out["nxn8"] = dec["nxn8_frame"]
+            out["mode4"] = dec["mode4_frame"]
+            if self.tu_split:
+                out["tusz8"] = dec["tusz_frame"]
+            if not self.ts:
+                for k in ("ts4_y", "ts8_u", "ts8_v"):
+                    del out[k]
+            out = self._loop_filters_and_cast(yp, up, vp, out,
+                                              dec["tusz_frame"])
         return out
 
     def _effective_qp_map(self, out: dict, qp_map: torch.Tensor):
@@ -1878,6 +1874,7 @@ class FrameEncoder:
         self._stage2[key] = wf
         while len(self._stage2) > _GRAPH_CACHE:
             self._stage2.popitem(last=False)
+            trace.count("stage2.evictions")
         return wf.run(inputs, shard)
 
     def _reconstruct_planned(self, yp, up, vp, mode_slot, cmode_slot,
@@ -1932,74 +1929,75 @@ class FrameEncoder:
         upload.upload(dev)
 
         for d, (idx, steps) in enumerate(plan):
-            if shard is not None and d:
-                # every tile, every diagonal: the exchange is collective
-                halo_l, halo_r = shard.exchange(*_tile_edges(ry, ru, rv))
-            bi, ri, ci = upload.get(idx)
-            ba = bi.shape[0]
-            if ba == 0:
-                continue
-            ext_y, ext_c = _diag_ext(ry, ru, rv, bi, ri, ci, cl,
-                                     None if shard is None
-                                     else (halo_l, halo_r))
-            oyl = oy_b[bi, ri, ci]                             # [BA, 64, 64]
-            ouv = torch.cat([ou_b[bi, ri, ci], ov_b[bi, ri, ci]])
-            msl = mode_slot[bi, ri, ci]                        # [BA, 8, 8]
-            cm8 = cmode_slot[bi, ri, ci]
-            mm4 = mode4_blk[bi, ri, ci]                        # [BA, 16, 16]
-            vy = torch.zeros((ba, 64, 64), dtype=i32, device=dev)
-            vc = torch.zeros((2 * ba, 32, 32), dtype=i32, device=dev)
-            cy8 = torch.zeros((ba, 8, 8), dtype=torch.bool, device=dev)
-            cc8 = torch.zeros((2 * ba, 8, 8), dtype=torch.bool, device=dev)
-            cy4 = torch.zeros((ba, 16, 16), dtype=torch.bool, device=dev)
-            ty4 = torch.zeros((ba, 16, 16), dtype=torch.bool, device=dev)
-            tc8 = torch.zeros((2 * ba, 8, 8), dtype=torch.bool, device=dev)
-            qp_l, qp_c2, rl_y, rl_c, tl_y, tl_c = self._ctu_qps(qp_map, bi,
-                                                                ri, ci)
-
-            for n, oy, ox, lstep, cstep in steps:
-                if n == 4:
-                    fire, av = (upload.get(h) for h in lstep)
-                    sy, sx = oy // 4, ox // 4
-                    cbf, ts = _tu_step(
-                        ext_y, vy, oyl, mm4[:, sy, sx], fire, oy, ox, 4,
-                        qp_l, av, is_luma=True, rdoq_lam=rl_y, dst=True,
-                        ts_lam=tl_y, rate_qp=self.qp, sbh=self.sbh)
-                    cy4[:, sy, sx] = torch.where(fire, cbf, cy4[:, sy, sx])
-                    ty4[:, sy, sx] = torch.where(fire, ts, ty4[:, sy, sx])
+            with trace.diagonal():
+                if shard is not None and d:
+                    # every tile, every diagonal: the exchange is collective
+                    halo_l, halo_r = shard.exchange(*_tile_edges(ry, ru, rv))
+                bi, ri, ci = upload.get(idx)
+                ba = bi.shape[0]
+                if ba == 0:
                     continue
-                sy, sx = oy // 8, ox // 8
-                if lstep:
-                    fire, av = (upload.get(h) for h in lstep)
-                    cbf, _ = _tu_step(
-                        ext_y, vy, oyl, msl[:, sy, sx], fire, oy, ox, n,
-                        qp_l, av, is_luma=True, rdoq_lam=rl_y, dst=False,
-                        ts_lam=0.0, rate_qp=self.qp, sbh=self.sbh)
-                    cy8[:, sy, sx] = torch.where(fire, cbf, cy8[:, sy, sx])
-                if cstep:
-                    fire, av = (upload.get(h) for h in cstep)
-                    cbf, ts = _tu_step(
-                        ext_c, vc, ouv, cm8[:, sy, sx].repeat(2), fire,
-                        oy // 2, ox // 2, n // 2, qp_c2, av,
-                        is_luma=False, rdoq_lam=rl_c, dst=False,
-                        ts_lam=tl_c, rate_qp=self.qp_c, sbh=self.sbh)
-                    cc8[:, sy, sx] = torch.where(fire, cbf, cc8[:, sy, sx])
-                    tc8[:, sy, sx] = torch.where(fire, ts, tc8[:, sy, sx])
+                ext_y, ext_c = _diag_ext(ry, ru, rv, bi, ri, ci, cl,
+                                         None if shard is None
+                                         else (halo_l, halo_r))
+                oyl = oy_b[bi, ri, ci]                         # [BA, 64, 64]
+                ouv = torch.cat([ou_b[bi, ri, ci], ov_b[bi, ri, ci]])
+                msl = mode_slot[bi, ri, ci]                    # [BA, 8, 8]
+                cm8 = cmode_slot[bi, ri, ci]
+                mm4 = mode4_blk[bi, ri, ci]                    # [BA, 16, 16]
+                vy = torch.zeros((ba, 64, 64), dtype=i32, device=dev)
+                vc = torch.zeros((2 * ba, 32, 32), dtype=i32, device=dev)
+                cy8 = torch.zeros((ba, 8, 8), dtype=torch.bool, device=dev)
+                cc8 = torch.zeros((2 * ba, 8, 8), dtype=torch.bool, device=dev)
+                cy4 = torch.zeros((ba, 16, 16), dtype=torch.bool, device=dev)
+                ty4 = torch.zeros((ba, 16, 16), dtype=torch.bool, device=dev)
+                tc8 = torch.zeros((2 * ba, 8, 8), dtype=torch.bool, device=dev)
+                qp_l, qp_c2, rl_y, rl_c, tl_y, tl_c = self._ctu_qps(qp_map, bi,
+                                                                    ri, ci)
 
-            # scatter the CTUs' local results (every index is distinct)
-            ry[bi, ri, ci] = ext_y[:, 1:65, 1:65]
-            ru[bi, ri, ci] = ext_c[:ba, 1:33, 1:33]
-            rv[bi, ri, ci] = ext_c[ba:, 1:33, 1:33]
-            lvy[bi, ri, ci] = vy
-            lvu[bi, ri, ci] = vc[:ba]
-            lvv[bi, ri, ci] = vc[ba:]
-            cby[bi, ri, ci] = cy8
-            cbu[bi, ri, ci] = cc8[:ba]
-            cbv[bi, ri, ci] = cc8[ba:]
-            cb4[bi, ri, ci] = cy4
-            t4b[bi, ri, ci] = ty4
-            tub[bi, ri, ci] = tc8[:ba]
-            tvb[bi, ri, ci] = tc8[ba:]
+                for n, oy, ox, lstep, cstep in steps:
+                    if n == 4:
+                        fire, av = (upload.get(h) for h in lstep)
+                        sy, sx = oy // 4, ox // 4
+                        cbf, ts = _tu_step(
+                            ext_y, vy, oyl, mm4[:, sy, sx], fire, oy, ox, 4,
+                            qp_l, av, is_luma=True, rdoq_lam=rl_y, dst=True,
+                            ts_lam=tl_y, rate_qp=self.qp, sbh=self.sbh)
+                        cy4[:, sy, sx] = torch.where(fire, cbf, cy4[:, sy, sx])
+                        ty4[:, sy, sx] = torch.where(fire, ts, ty4[:, sy, sx])
+                        continue
+                    sy, sx = oy // 8, ox // 8
+                    if lstep:
+                        fire, av = (upload.get(h) for h in lstep)
+                        cbf, _ = _tu_step(
+                            ext_y, vy, oyl, msl[:, sy, sx], fire, oy, ox, n,
+                            qp_l, av, is_luma=True, rdoq_lam=rl_y, dst=False,
+                            ts_lam=0.0, rate_qp=self.qp, sbh=self.sbh)
+                        cy8[:, sy, sx] = torch.where(fire, cbf, cy8[:, sy, sx])
+                    if cstep:
+                        fire, av = (upload.get(h) for h in cstep)
+                        cbf, ts = _tu_step(
+                            ext_c, vc, ouv, cm8[:, sy, sx].repeat(2), fire,
+                            oy // 2, ox // 2, n // 2, qp_c2, av,
+                            is_luma=False, rdoq_lam=rl_c, dst=False,
+                            ts_lam=tl_c, rate_qp=self.qp_c, sbh=self.sbh)
+                        cc8[:, sy, sx] = torch.where(fire, cbf, cc8[:, sy, sx])
+                        tc8[:, sy, sx] = torch.where(fire, ts, tc8[:, sy, sx])
+
+                # scatter the CTUs' local results (every index is distinct)
+                ry[bi, ri, ci] = ext_y[:, 1:65, 1:65]
+                ru[bi, ri, ci] = ext_c[:ba, 1:33, 1:33]
+                rv[bi, ri, ci] = ext_c[ba:, 1:33, 1:33]
+                lvy[bi, ri, ci] = vy
+                lvu[bi, ri, ci] = vc[:ba]
+                lvv[bi, ri, ci] = vc[ba:]
+                cby[bi, ri, ci] = cy8
+                cbu[bi, ri, ci] = cc8[:ba]
+                cbv[bi, ri, ci] = cc8[ba:]
+                cb4[bi, ri, ci] = cy4
+                t4b[bi, ri, ci] = ty4
+                tub[bi, ri, ci] = tc8[:ba]
+                tvb[bi, ri, ci] = tc8[ba:]
 
         return {
             "recon_y": from_blocked(ry), "recon_u": from_blocked(ru),

@@ -135,8 +135,7 @@ def profile_stages(params, *, frames=8, qp=32, device="cuda", reps=5,
         enc_mod.to_blocked(d["mode4_frame"], 16)), dev, reps)
 
     stages["device_full"] = timeit(
-        lambda: enc._encode_impl(yj, uj, vj, lab,
-                                 clock=enc_mod._StageClock(dev)),
+        lambda: enc._encode_impl(yj, uj, vj, lab),
         dev, full_reps)
     stages["filters_derived"] = max(
         0.0, stages["device_full"]

@@ -16,6 +16,7 @@ import torch
 from hevctpu_torch.models import checkpoint, convnet2
 from hevctpu_torch.pipeline import clips
 from hevctpu_torch.pipeline import encoder as tenc
+from hevctpu_torch.pipeline import trace
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W, QP, FRAMES = 64, 128, 32, 2
@@ -53,6 +54,7 @@ def recorded():
 def test_graphs_equal_planned_without_host_sync(recorded):
     enc, calls = recorded
     enc._stage2.clear()
+    before = trace.counters()
     for args in calls:
         want = enc._reconstruct_planned(*args)
         for _ in range(2):          # the call that captures, then a replay
@@ -65,8 +67,13 @@ def test_graphs_equal_planned_without_host_sync(recorded):
             for k in want:
                 assert torch.equal(got[k], want[k]), k
     wf, = enc._stage2.values()
+    after = trace.counters()
     # a diagonal replays its gather, 4 TU32, 16 16-block and its scatter
-    assert wf.replays == 2 * len(calls) * wf.diagonals * 22
+    assert (after["stage2.replays"] - before["stage2.replays"]
+            == 2 * len(calls) * wf.diagonals * 22)
+    # both reconstructions share one key: captured once, evicted never
+    assert after["stage2.captures"] - before["stage2.captures"] == 1
+    assert after["stage2.evictions"] == before["stage2.evictions"]
 
 
 @pytest.mark.gpu

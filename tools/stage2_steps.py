@@ -33,6 +33,7 @@ import torch  # noqa: E402
 from hevctpu_torch.models import checkpoint, convnet2  # noqa: E402
 from hevctpu_torch.pipeline import clips  # noqa: E402
 from hevctpu_torch.pipeline import encoder as E  # noqa: E402
+from hevctpu_torch.pipeline import trace  # noqa: E402
 
 # masked _tu_step_dyn calls of one diagonal: 84 luma steps (sizes 32,
 # 16, 8) each with its chroma step, and 256 luma TU4 steps
@@ -70,12 +71,14 @@ def time_forms(enc, args, replay: bool = True) -> dict:
     read back to the host): the ms of the call that captures and, with
     replay, of a call that only replays. Each traced call's 13 planes
     must equal the planned form's (ValueError naming the planes that
-    differ). Also the capture ms, the graphs' nodes, the replays, the
-    diagonals and the peak memory of the traced calls."""
+    differ). Also the capture ms, the graphs' nodes, the replays (from
+    trace.counters()), the diagonals and the peak memory of the traced
+    calls."""
     row = {}
     row["planned_ms"], want = cuda_ms(lambda: enc._reconstruct_planned(
         *args))
     enc._stage2.clear()
+    counted = trace.counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for call in ("capture_call_ms", "replay_call_ms")[: 1 + replay]:
@@ -88,8 +91,10 @@ def time_forms(enc, args, replay: bool = True) -> dict:
             raise ValueError("the traced stage 2 differs from the planned "
                              f"one in {bad or sorted(want)}")
     wf, = enc._stage2.values()
-    row.update(capture_ms=wf.capture_ms, nodes=wf.nodes,
-               replays=wf.replays, diagonals=wf.diagonals,
+    now = {k: v - counted[k] for k, v in trace.counters().items()}
+    row.update(capture_ms=now["stage2.capture_ms"],
+               nodes=now["stage2.graph_nodes"],
+               replays=now["stage2.replays"], diagonals=wf.diagonals,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     return row
 
