@@ -109,8 +109,9 @@ def measure(params, h, w, frames, batch, reps, qp=QP, *, device=None,
     batch; the warm-up batch's stage ms; each batch's dispatch and
     stream ms in the last pass; peak device memory; K1 launches of one
     timed pass; stage 2's counters over the run, trace.counters()'s
-    stage2.* keys: captures, capture ms, graph nodes, replays and
-    evictions (all 0 on the CPU); the device's label). device is cuda
+    stage2.* keys: captures, capture ms, graph nodes, replays,
+    evictions and kernel launches (all 0 on the CPU); the device's
+    label). device is cuda
     unless the caller names the CPU; without CUDA it raises. warmup
     "full" is one untimed pass of every batch (bench.py's), "batch" one
     batch."""

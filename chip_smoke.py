@@ -119,19 +119,25 @@ Phases (each fails the run with a nonzero exit):
      each cut from bench.py's defaults and the card's name and power
      limit;
  19. stage 2's two forms on the card, on the arguments phases 4 and 5
-     recorded (416x240 x 8, 1920x1080 x 1): the host-planned form (stage
-     2's plain version) and the traced form (the reference's: the static
-     TU schedule, fire masks on the device), captured anew as CUDA
-     graphs and replayed under torch.cuda.set_sync_debug_mode("error"),
-     so that nothing is read back to the host: all 13 planes equal; the
-     ms of both forms, the capture ms, the graphs' nodes and replays and
-     the peak memory.
-Every encode on the card above runs stage 2 in the traced form from
-CUDA graphs; the card-vs-CPU checks hold it to the CPU's planned form.
-Then one JSON line of the paths, one of the kernels (K1's launches summed
-over the paths 4, 5, 7, 8, 9, 10, 11's card encodes, 12a, 13's ranks,
-15, 16, 17 and 18), the card's name and power limit, and the last line
-{"ok": true, "device": {...}}.
+     recorded (416x240 x 8, 1920x1080 x 1): the host-planned form and
+     the kernel form (the traced form's gather and scatter captured anew
+     as CUDA graphs, the stage-2 kernel between them, each CTU and plane
+     coding only its own TUs), run under
+     torch.cuda.set_sync_debug_mode("error"), so that nothing is read
+     back to the host: all 13 planes equal; the ms of both forms and of
+     the kernel's launches alone, the capture ms, the graphs' nodes and
+     replays, the kernel launches and the peak memory; stage 2's bound
+     there (the coded TUs' transform multiply-adds at the INT32 rate,
+     or the planes' bytes at HBM's).
+Every encode on the card above runs stage 2 in the kernel form; the
+card-vs-CPU checks hold it to the CPU's planned form. Each path that
+checks K1's launches also checks the stage-2 kernel's: one a wavefront
+diagonal of each stage-2 run (an encode runs stage 2 once, twice under
+two_pass; a rank's tile walks every diagonal of the picture).
+Then one JSON line of the paths, one of the kernels (K1's and the stage-2
+kernel's launches summed over the paths 4, 5, 7, 8, 9, 10, 11's card
+encodes, 12a, 13's ranks, 15, 16, 17 and 18), the card's name and power
+limit, and the last line {"ok": true, "device": {...}}.
 
 Run from the repository root: python3 chip_smoke.py
 It exits nonzero, printing no result, without CUDA or without the repo.
@@ -213,6 +219,35 @@ M_PATHS = [M_1080P, M_416X240X8, k1_rows(240, 416, 4), k1_rows(240, 416, 1),
 # (n, M, luma) of every K1 launch after phase 2, to show each was held
 # against the plain version there.
 K1_LAUNCHED = set()
+# The stage-2 kernel's launches on each path checked below, by the path's
+# label: one a wavefront diagonal of every stage-2 run there.
+S2_LAUNCHED = {}
+
+
+def diagonals(h: int, w: int) -> int:
+    """Wavefront diagonals d = 2r + c over an h x w picture's CTU rows r
+    and columns c; every tile of a mesh walks all of them."""
+    return 2 * (-(-h // 64) - 1) + -(-w // 64)
+
+
+def s2_launches() -> int:
+    """The stage-2 kernel's launches in this process so far."""
+    from hevctpu_torch.pipeline import trace
+    return trace.counters()["stage2.kernel_launches"]
+
+
+def check_s2(label: str, since: int, h: int, w: int, runs: int) -> int:
+    """Since the reading `since` (s2_launches()), the stage-2 kernel must
+    have launched once a diagonal of each of `runs` stage-2 runs at h x w
+    (an encode runs stage 2 once, twice under two_pass; none on the
+    CPU). Records the launches under label and returns them."""
+    n = s2_launches() - since
+    want = runs * diagonals(h, w)
+    if n != want:
+        fail(f"{label}: the stage-2 kernel launched {n} times, not {want} "
+             f"({runs} stage-2 run(s) of {diagonals(h, w)} diagonals)")
+    S2_LAUNCHED[label] = S2_LAUNCHED.get(label, 0) + n
+    return n
 
 
 def record_k1_shapes():
@@ -437,6 +472,7 @@ def run_path(h, w, frames, cnn, dev, label, want_launches=4, **options):
     cfg = headers.StreamConfig(width=w, height=h, qp=QP,
                                hash_type="checksum")
     satd_fused.LAUNCHES = 0
+    since = s2_launches()
     t0 = time.perf_counter()
     out = enc.collect(enc.encode_fused_dispatch(cnn, y, u, v))
     t1 = time.perf_counter()
@@ -447,6 +483,7 @@ def run_path(h, w, frames, cnn, dev, label, want_launches=4, **options):
     if launches != want_launches:
         fail(f"{label}: K1 launched {launches} times for one batch, not "
              f"{want_launches}")
+    s2 = check_s2(label, since, h, w, 2 if options.get("two_pass") else 1)
     dec = decoder.Decoder()
     got = dec.decode(stream)
     if not (dec.hashes_ok and all(dec.hashes_ok) and len(got) == frames):
@@ -463,7 +500,7 @@ def run_path(h, w, frames, cnn, dev, label, want_launches=4, **options):
                  encode_s=t1 - t0, cabac_ms=(t2 - t1) * 1e3,
                  stage_ms={k: round(v, 3) for k, v in stages.items()},
                  bytes=len(stream), psnr_y=psnr_y(out["sse"], h, w),
-                 k1_launches=launches,
+                 k1_launches=launches, s2_launches=s2,
                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     log(f"  {label}: {json.dumps(stats)}")
     return stats, out, stream
@@ -546,8 +583,11 @@ def check_decode(bs: str, rec: str, out_dir: str, frames: int, label: str):
     return dec
 
 
-def phase_cli(tmp: str, extra, frames: int, label: str, want_launches: int):
-    """One CLI encode of the 416x240 file + decode; returns its stats."""
+def phase_cli(tmp: str, extra, frames: int, label: str, want_launches: int,
+              s2_runs: int):
+    """One CLI encode of the 416x240 file + decode, K1 launched
+    want_launches times and stage 2 run s2_runs times; returns its
+    stats."""
     from hevctpu_torch.ops import satd_fused
     bs, rec = (os.path.join(tmp, f"{label}.{e}") for e in ("bin", "yuv"))
     argv = ["encode", "-c", os.path.join(ROOT, "configs",
@@ -556,14 +596,16 @@ def phase_cli(tmp: str, extra, frames: int, label: str, want_launches: int):
             "--height", "240", "-f", str(frames), "-b", bs, "--recon", rec,
             *extra]
     satd_fused.LAUNCHES = 0
+    since = s2_launches()
     text, wall = run_cli(argv, label)
     launches = satd_fused.LAUNCHES
     if launches != want_launches:
         fail(f"{label}: K1 launched {launches} times, not {want_launches}")
+    s2 = check_s2(label, since, 240, 416, s2_runs)
     dec = check_decode(bs, rec, tmp, frames, label)
     stats = parse_encode_log(text)
     stats.update(frames=frames, fps=frames / wall, wall_s=wall,
-                 k1_launches=launches)
+                 k1_launches=launches, s2_launches=s2)
     return stats, dec
 
 
@@ -571,14 +613,16 @@ def rd_card_vs_cpu(dev, label, clip, cfg, want_launches=4, qp_map=None,
                    **options):
     """search="rd" encodes of clip (y, u, v [B, H, W]) on the card and on
     the CPU port with the given FrameEncoder options: the streams must be
-    byte-identical, and the card must launch K1 want_launches times.
-    Returns (the card's output dict, the stream, its K1 launches)."""
+    byte-identical, and the card must launch K1 want_launches times and
+    the stage-2 kernel once a diagonal of each stage-2 run. Returns (the
+    card's output dict, the stream, its K1 launches)."""
     from hevctpu_torch.codec import decoder
     from hevctpu_torch.ops import satd_fused
     from hevctpu_torch.pipeline.encoder import FrameEncoder
     y, u, v = clip
     h, w = y.shape[-2:]
     outs, streams, launches = [], [], 0
+    since = s2_launches()
     for d in (dev, "cpu"):
         satd_fused.LAUNCHES = 0
         outs.append(FrameEncoder(h, w, QP, device=d, search="rd",
@@ -588,6 +632,8 @@ def rd_card_vs_cpu(dev, label, clip, cfg, want_launches=4, qp_map=None,
     if launches != want_launches:
         fail(f"{label} card encode: K1 launched {launches} times, not "
              f"{want_launches}")
+    check_s2(f"{label} card encode", since, h, w,
+             2 if options.get("two_pass") else 1)
     if streams[0] != streams[1]:
         diff = first_difference(outs[0], outs[1])
         margin = cost_margin(y[:1], u[:1], v[:1], dev,
@@ -668,6 +714,7 @@ def phase_lite(cnn, dev):
     res, launches = {}, 0
     for lite in (True, False):
         satd_fused.LAUNCHES = 0
+        since = s2_launches()
         t0 = time.perf_counter()
         dev_out = enc.encode_fused_dispatch(cnn, y, u, v, lite=lite)
         dev_out.result()              # the encode, on the worker thread
@@ -681,6 +728,7 @@ def phase_lite(cnn, dev):
         if satd_fused.LAUNCHES != 4:
             fail(f"lite={lite}: K1 launched {satd_fused.LAUNCHES} times for "
                  f"one batch, not 4")
+        check_s2(f"lite={lite}", since, h, w, 1)
         launches += satd_fused.LAUNCHES
         res[lite] = (out, stream, dict(
             fps=frames / (t3 - t0), collect_ms=(t2 - t1) * 1e3,
@@ -771,6 +819,7 @@ def phase_train_cli(tmp: str, dev):
     src, ckpt = os.path.join(tmp, "in416.yuv"), os.path.join(tmp,
                                                               "trained.npz")
     satd_fused.LAUNCHES = 0
+    since = s2_launches()
     text, wall = run_cli(["train", "-i", src, "--width", "416", "--height",
                           "240", "-f", str(CLI_FRAMES), "-q", str(QP), "--epochs", "3",
                           "--init", os.path.join(ROOT, "CKPT_DOMAIN.npz"),
@@ -778,6 +827,8 @@ def phase_train_cli(tmp: str, dev):
     launches = satd_fused.LAUNCHES
     if launches != 4:
         fail(f"cli_train: K1 launched {launches} times, not 4")
+    # the full-RD labels encode the file in batches of 4 frames
+    check_s2("cli_train labels", since, 240, 416, -(-CLI_FRAMES // 4))
     hist = [dict(epoch=int(e), loss=float(lo), acc=float(a)) for e, lo, a
             in re.findall(r"epoch (\d+): loss ([0-9.]+) acc ([0-9.]+)", text)]
     times = re.search(r"Train time: labels ([0-9.]+) s \| dataset ([0-9.]+) "
@@ -798,11 +849,13 @@ def phase_train_cli(tmp: str, dev):
                 fail(f"cli_train: {layer}/{k} is {got.dtype} {got.shape}")
     y, u, v = (p.astype(np.int32) for p in yuv.read_yuv420(src, 416, 240, 1))
     satd_fused.LAUNCHES = 0
+    since = s2_launches()
     out = FrameEncoder(240, 416, QP, device=dev).encode_fused(
         convnet2.load_model(params, dev), y, u, v)
     if satd_fused.LAUNCHES != 4:
         fail(f"cli_train: the trained model's encode launched K1 "
              f"{satd_fused.LAUNCHES} times, not 4")
+    check_s2("cli_train frame 0", since, 240, 416, 1)
     launches += satd_fused.LAUNCHES
     stream = decoder.encode_stream(
         headers.StreamConfig(width=416, height=240, qp=QP), [out])
@@ -1040,11 +1093,13 @@ def _rank_main(rank, job, init, results):
         sh = ShardedEncoder(h, w, QP, mesh, **src)
         mesh.reset_tally()
         satd_fused.LAUNCHES = 0
+        since = s2_launches()
         t0 = time.perf_counter()
         out = sh.encode(y, u, v)
         wall = time.perf_counter() - t0
         launches = satd_fused.LAUNCHES
         res = dict(out=out, wall_s=wall, k1_launches=launches,
+                   s2_launches=s2_launches() - since,
                    k1_shapes=sorted(K1_LAUNCHED), mesh=mesh.shape,
                    coords=(mesh.frame_index, mesh.tile_index),
                    backend=dist.get_backend(),
@@ -1060,7 +1115,9 @@ def _rank_main(rank, job, init, results):
 def phase_sharded(label, world, backend, job, want, want_stream, cfg,
                   timeout_s, want_tally=None):
     """One phase-13 or 17a world: every rank's dict must equal want key
-    for key and encode to want_stream; each rank launches K1 4 times;
+    for key and encode to want_stream; each rank launches K1 4 times and
+    the stage-2 kernel once a diagonal of the whole picture (a tile walks
+    every diagonal);
     with want_tally (the rank's (frame, tile) -> the tally it must hold),
     each rank's mesh tallied those bytes. Returns (stats, the ranks' K1
     launches)."""
@@ -1090,6 +1147,11 @@ def phase_sharded(label, world, backend, job, want, want_stream, cfg,
         if res["k1_launches"] != 4:
             fail(f"{label} rank {rank}: K1 launched {res['k1_launches']} "
                  f"times, not 4")
+        if res["s2_launches"] != diagonals(job["h"], job["w"]):
+            fail(f"{label} rank {rank}: the stage-2 kernel launched "
+                 f"{res['s2_launches']} times, not "
+                 f"{diagonals(job['h'], job['w'])}")
+        S2_LAUNCHED[f"{label} rank {rank}"] = res["s2_launches"]
         if want_tally and res["tally"] != want_tally(res["coords"]):
             fail(f"{label} rank {rank}: tally {res['tally']}, not the "
                  f"closed form {want_tally(res['coords'])}")
@@ -1191,13 +1253,18 @@ def _timed(fn):
     return out, time.perf_counter() - t0
 
 
-def _count_k1(label, fn, want):
-    """fn's result with K1's launch count around it, which must be want."""
+def _count_launches(label, fn, want, s2):
+    """fn's result with K1's launch count around it, which must be want,
+    and the stage-2 kernel's, which must be one a diagonal of each of the
+    stage-2 runs s2 = (runs, h, w)."""
     from hevctpu_torch.ops import satd_fused
     satd_fused.LAUNCHES = 0
+    since = s2_launches()
     out = fn()
     if satd_fused.LAUNCHES != want:
         fail(f"{label}: K1 launched {satd_fused.LAUNCHES} times, not {want}")
+    runs, h, w = s2
+    check_s2(label, since, h, w, runs)
     return out
 
 
@@ -1226,11 +1293,13 @@ def capture_encodes():
 
 
 def run_calibration(label, fn, want_launches):
-    """One calibration path on the card, K1 launched want_launches times:
-    (fn's result, seconds in all, seconds in its full-RD encodes, the
-    encodes' (dict, seconds))."""
+    """One calibration path on the card at 416x240, K1 launched
+    want_launches times and stage 2 run want_launches / 4 times (one
+    encode each): (fn's result, seconds in all, seconds in its full-RD
+    encodes, the encodes' (dict, seconds))."""
     with capture_encodes() as calls:
-        out, secs = _timed(lambda: _count_k1(label, fn, want_launches))
+        out, secs = _timed(lambda: _count_launches(
+            label, fn, want_launches, (want_launches // 4, 240, 416)))
     return out, secs, sum(t for _, t in calls), calls
 
 
@@ -1329,19 +1398,21 @@ def phase_calibrate(dev):
     card, cpu = {}, {}
     for d, res in ((dev, card), (torch.device("cpu"), cpu)):
         want = 4 if d.type == "cuda" else 0
-        res["rate"] = _count_k1(f"rate 64x128 on {d.type}",
-                                lambda: calibrate.rate_samples(
-                                    CAL_QP, [CAL_SMALL_CLIP], n, device=d,
-                                    **small), want)
-        res["ctx"] = _count_k1(f"ctx 64x128 on {d.type}",
-                               lambda: calibrate.ctx_count_table(
-                                   [CAL_QP], [CAL_SMALL_CLIP], n, device=d,
-                                   log=None, **small), want)
-        res["domain"] = _count_k1(f"domain 64x128 on {d.type}",
-                                  lambda: calibrate.domain_dataset(
-                                      [CAL_SMALL_CLIP], 1, n,
-                                      [CAL_DOMAIN_QP], device=d, log=None,
-                                      **small), want)
+        s2 = (want // 4, small["h"], small["w"])
+        res["rate"] = _count_launches(f"rate 64x128 on {d.type}",
+                                      lambda: calibrate.rate_samples(
+                                          CAL_QP, [CAL_SMALL_CLIP], n,
+                                          device=d, **small), want, s2)
+        res["ctx"] = _count_launches(f"ctx 64x128 on {d.type}",
+                                     lambda: calibrate.ctx_count_table(
+                                         [CAL_QP], [CAL_SMALL_CLIP], n,
+                                         device=d, log=None, **small),
+                                     want, s2)
+        res["domain"] = _count_launches(f"domain 64x128 on {d.type}",
+                                        lambda: calibrate.domain_dataset(
+                                            [CAL_SMALL_CLIP], 1, n,
+                                            [CAL_DOMAIN_QP], device=d,
+                                            log=None, **small), want, s2)
         launches += want * 3
     for i, name in enumerate(("features", "exact bits")):
         if not np.array_equal(card["rate"][i], cpu["rate"][i]):
@@ -1434,8 +1505,10 @@ def phase_evaluate(dev):
     with open(os.path.join(ROOT, EVAL_JAX_RECORD)) as f:
         want = _no_time(json.load(f)["per_clip"][EVAL_CLIP]["ours_cnn"])
     y, u, v = clips.make_clip(EVAL_CLIP, EVAL_FRAMES, 240, 416)
-    pts = _count_k1("evaluate cnn 416x240x8", lambda: evaluate.ours_points(
-        y, u, v, qps, "cnn", params, device=dev, log=log), 4 * len(qps))
+    pts = _count_launches(
+        "evaluate cnn 416x240x8", lambda: evaluate.ours_points(
+            y, u, v, qps, "cnn", params, device=dev, log=log), 4 * len(qps),
+        (len(qps), 240, 416))
     launches += 4 * len(qps)
     for p in pts:
         vals = [p[k] for k in ("bitrate_kbps", "psnr_y", "psnr_u", "psnr_v",
@@ -1473,8 +1546,10 @@ def phase_evaluate(dev):
         want_k1 = 4 if d.type == "cuda" else 0
 
         def run(label, fn, n):
-            return _count_k1(f"evaluate {label} 64x128 on {d.type}", fn,
-                             want_k1 * n)
+            # n stage-1 runs on the card, each followed by a stage-2 run
+            return _count_launches(f"evaluate {label} 64x128 on {d.type}",
+                                   fn, want_k1 * n,
+                                   (want_k1 // 4 * n, 64, 128))
 
         r = res[side] = {}
         for mode in ("cnn", "rd"):
@@ -1504,10 +1579,13 @@ def phase_evaluate(dev):
 
     # (c) the stage profile, 416x240 cut to PROFILE_FRAMES and PROFILE_REPS
     n_k1 = 4 * (2 * (1 + PROFILE_REPS) + 2 + 2 * (1 + PROFILE_REPS) + 1)
-    prof, secs = _timed(lambda: _count_k1(
+    # stage 2 alone, the device encode and encode_fused, each warm and
+    # timed; the one encode for the stream
+    n_s2 = 3 * (1 + PROFILE_REPS) + 1
+    prof, secs = _timed(lambda: _count_launches(
         "profile 416x240", lambda: profile.profile_stages(
             params, frames=PROFILE_FRAMES, device=dev, reps=PROFILE_REPS,
-            full_reps=PROFILE_REPS), n_k1))
+            full_reps=PROFILE_REPS), n_k1, (n_s2, 240, 416)))
     launches += n_k1
     ms = prof["stage_ms"]
     if not all(np.isfinite(t) and t >= 0 for t in ms.values()):
@@ -1551,6 +1629,7 @@ def _fixed_depth_dispatch(h, w, frames, dev):
     g = enc.geom
     labels = np.ones((frames, g.rc * g.cc, 16), np.int8)
     satd_fused.LAUNCHES = 0
+    since = s2_launches()
     dispatched = enc.encode_dispatch(*clips.clip_sine(frames, h, w, seed=0),
                                      labels)
     out = enc.collect(dispatched)
@@ -1558,6 +1637,7 @@ def _fixed_depth_dispatch(h, w, frames, dev):
     if satd_fused.LAUNCHES != 4:
         fail(f"{w}x{h} x {frames}: K1 launched {satd_fused.LAUNCHES} times, "
              f"not 4")
+    check_s2(f"{w}x{h} x {frames} fixed depth", since, h, w, 1)
     return dispatched, out, satd_fused.LAUNCHES
 
 
@@ -1568,9 +1648,10 @@ def phase_scaling(dev):
     (edge or middle); (b) tools/scaling_model_torch.py's main at
     SCALING_ARGV: the JAX tool's keys, every rank's tally the closed
     form, the checksums the single-process encode's, the model the
-    formulas. The tool's ranks are its own processes: their K1 launches
-    come from its report (4 a rank, at k1_rows(128, 512, 1), a grid of
-    M_PATHS). Returns (stats, K1 launches)."""
+    formulas. The tool's ranks are its own processes: their K1 and
+    stage-2 kernel launches come from its report (4 a rank, at
+    k1_rows(128, 512, 1), a grid of M_PATHS; one a diagonal). Returns
+    (stats, K1 launches)."""
     from hevctpu_torch.codec import headers, decoder
     from hevctpu_torch.parallel.sharded import tally_closed_form
     t_phase = time.perf_counter()
@@ -1624,6 +1705,11 @@ def phase_scaling(dev):
         if r["k1_launches"] != 4:
             fail(f"17b rank {r['rank']}: K1 launched {r['k1_launches']} "
                  f"times, not 4")
+        if r["s2_launches"] != diagonals(s["h"], s["w"]):
+            fail(f"17b rank {r['rank']}: the stage-2 kernel launched "
+                 f"{r['s2_launches']} times, not "
+                 f"{diagonals(s['h'], s['w'])}")
+        S2_LAUNCHED[f"17b rank {r['rank']}"] = r["s2_launches"]
         launches += r["k1_launches"]
     want_model = _scaling_model_formulas(doc)
     for k, v in want_model.items():
@@ -1680,6 +1766,7 @@ def phase_bench(dev, stream_one):
                                      job["batch"], job["reps"],
                                      job["warmup"])
         satd_fused.LAUNCHES = 0
+        since = s2_launches()
         fps, rep_fps, run = bench_torch.measure(
             params, job["h"], job["w"], job["frames"], job["batch"],
             job["reps"], device=dev, warmup=job["warmup"])
@@ -1690,6 +1777,8 @@ def phase_bench(dev, stream_one):
             fail(f"18{key}: K1 launched {satd_fused.LAUNCHES} times "
                  f"({run['k1_launches_per_pass']} a pass of {batches} "
                  f"batches), not {want}")
+        check_s2(f"18{key}", since, job["h"], job["w"],
+                 1 + job["reps"] * batches)
         launches += satd_fused.LAUNCHES
         runs[key] = (fps, rep_fps, run)
     fps, rep_fps, run = runs["a"]
@@ -1706,6 +1795,7 @@ def phase_bench(dev, stream_one):
                                hash_type="checksum")
     seq, seq_ms = [], []
     satd_fused.LAUNCHES = 0
+    since = s2_launches()
     for i in range(0, job["frames"], b):
         t0 = time.perf_counter()
         handle = enc.encode_fused_dispatch(cnn, y[i:i + b], u[i:i + b],
@@ -1719,6 +1809,7 @@ def phase_bench(dev, stream_one):
     if satd_fused.LAUNCHES != 4 * len(seq):
         fail(f"18b: the batches alone launched K1 {satd_fused.LAUNCHES} "
              f"times, not {4 * len(seq)}")
+    check_s2("18b batches alone", since, h, w, len(seq))
     launches += satd_fused.LAUNCHES
     _, rep_fps2, run2 = runs["b"]
     if run2["streams"] != seq:
@@ -1772,15 +1863,18 @@ def record_stage2(store: dict, label: str):
         FrameEncoder._reconstruct = real
 
 
-def phase_stage2(recorded: dict) -> dict:
+def phase_stage2(recorded: dict, sm_hz: float) -> dict:
     """Phase 19, stage 2's two forms on the card, on the arguments phases
     4 and 5 recorded (tools/stage2_steps.time_forms): the host-planned
-    form (the plain version) and the traced form, captured anew as CUDA
-    graphs and replayed under torch.cuda.set_sync_debug_mode("error")
-    (nothing read back to the host), all 13 planes equal. Per geometry:
-    the planned ms, the ms of the traced call that captures and (416x240
-    only) of one that only replays, the capture ms, the graphs' nodes,
-    the replays and the peak memory of the traced calls."""
+    form and the kernel form, its graphs captured anew, under
+    torch.cuda.set_sync_debug_mode("error") (nothing read back to the
+    host), all 13 planes equal. Per geometry: the planned ms, the ms of
+    the kernel-form call that captures and (416x240 only) of one that
+    only replays and of its kernel launches alone, the capture ms, the
+    graphs' nodes, the replays, the kernel launches and the peak
+    memory; and stage 2's bound on those arguments (stage2_steps.bound:
+    the coded TUs' transform multiply-adds at the card's INT32 rate, or
+    the planes' bytes at HBM's)."""
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     import stage2_steps
     res = {}
@@ -1790,6 +1884,9 @@ def phase_stage2(recorded: dict) -> dict:
                                           replay=label.startswith("416"))
         except ValueError as e:
             fail(f"19 {label}: {e}")
+        row.update(stage2_steps.bound(enc, args, INT32_LANES * sm_hz,
+                                      HBM_BYTES_PER_S))
+        row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
         log(f"  19 {label}: 13 planes equal, no host sync; "
             f"{json.dumps(row)}")
         res[label] = row
@@ -1831,6 +1928,12 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
     build_s, ptxas = satd_fused.build()
     log(f"  K1 built in {build_s:.2f} s (nvcc, sm_90a); ptxas -v:")
+    for line in ptxas.splitlines():
+        log(f"    {line.strip()}")
+    from hevctpu_torch.ops import stage2_ctu
+    s2_build_s, ptxas = stage2_ctu.build()
+    log(f"  stage-2 kernel built in {s2_build_s:.2f} s (nvcc, sm_90a, "
+        f"--fmad=false); ptxas -v:")
     for line in ptxas.splitlines():
         log(f"    {line.strip()}")
     sm_hz = sm_clock_hz()
@@ -1898,7 +2001,7 @@ def main() -> int:
         log_phase(f"phase 7: CLI encode --search rd, 416x240 x {CLI_FRAMES} "
                   "frames (one batch), then decode")
         cli_rd, _ = phase_cli(tmp, ["--search", "rd"], CLI_FRAMES, "cli_rd",
-                              4)
+                              4, 1)
         launches += cli_rd["k1_launches"]
         log(f"  cli_rd: {json.dumps(cli_rd)}")
         cli_rd["frame0_card_vs_cpu_bytes"] = rd_frame_card_vs_cpu(tmp, dev)
@@ -1912,7 +2015,7 @@ def main() -> int:
         cli_rc, dec = phase_cli(
             tmp, ["-c", lcu_cfg, "--target-kbps", "1000", "--search", "cnn",
                   "--model", os.path.join(ROOT, "CKPT_DOMAIN.npz")],
-            CLI_FRAMES, "cli_rc", 4 * CLI_FRAMES)
+            CLI_FRAMES, "cli_rc", 4 * CLI_FRAMES, CLI_FRAMES)
         launches += cli_rc["k1_launches"]
         ctu_qps = sorted(set(np.concatenate(
             [m.ravel() for m in dec.qp_maps]).tolist()))
@@ -2010,10 +2113,10 @@ def main() -> int:
     bench_sd, n = phase_bench(dev, streams[0])
     launches += n
 
-    log_phase("phase 19: stage 2 on the card, the traced form from CUDA "
-              "graphs (no host sync) against the planned form, at phase "
-              "4's and phase 5's arguments")
-    stage2 = phase_stage2(stage2_args)
+    log_phase("phase 19: stage 2 on the card, the kernel form (no host "
+              "sync) against the planned form, at phase 4's and phase 5's "
+              "arguments")
+    stage2 = phase_stage2(stage2_args, sm_hz)
 
     unchecked = sorted(K1_LAUNCHED - k1["checked"])
     if unchecked:
@@ -2028,6 +2131,19 @@ def main() -> int:
                     launches=launches, max_abs_err=k1["max_abs_err"],
                     ms=k1["ms"], plain_ms=k1["plain_ms"],
                     bound_ms=k1["bound_ms"], bound_by=k1["bound_by"],
+                    library_ms=None),
+               dict(name="stage2_ctu", route="cuda",
+                    source="hevctpu_torch/csrc/stage2_ctu.cu",
+                    replaces=None, build_s=s2_build_s,
+                    launches=sum(S2_LAUNCHED.values()),
+                    launches_by_path=S2_LAUNCHED,
+                    phase19_launches={k: r["kernel_launches"]
+                                      for k, r in stage2.items()},
+                    ms={k: r["kernel_ms"] for k, r in stage2.items()},
+                    plain_ms={k: r["planned_ms"]
+                              for k, r in stage2.items()},
+                    bound_ms={k: r["bound_ms"] for k, r in stage2.items()},
+                    bound_by={k: r["bound_by"] for k, r in stage2.items()},
                     library_ms=None)]
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"paths": {"416x240": sd, "1920x1080": hd,

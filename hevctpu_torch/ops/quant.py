@@ -40,6 +40,11 @@ def is_static_qp(qp) -> bool:
     return isinstance(qp, (int, np.integer))
 
 
+def lam_on(lam) -> bool:
+    """A λ of scalar 0.0 switches its tool off; a per-row tensor is on."""
+    return isinstance(lam, torch.Tensor) or lam != 0.0
+
+
 @functools.lru_cache(maxsize=None)
 def _scale_tables(device: torch.device):
     return tuple(torch.as_tensor(np.asarray(t, np.int32), device=device)

@@ -23,20 +23,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 import threading
-import time
-from pathlib import Path
 
 import numpy as np
 import torch
 
 from hevctpu_torch import rom
-from hevctpu_torch.ops import cost, intra_mm
+from hevctpu_torch.ops import _nvcc, cost, intra_mm
 
 # Kernel launches since import (or since the caller last reset it): the
 # proof that a run went through the CUDA kernel. Encoders launch K1 from
@@ -46,9 +39,7 @@ LAUNCHES = 0
 _LAUNCH_LOCK = threading.Lock()
 _LIB_LOCK = threading.Lock()
 
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCE = _CSRC / "satd_fused.cu"
-_BUILD_DIR = _CSRC / "_build"
+_SOURCE = _nvcc.CSRC / "satd_fused.cu"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -86,49 +77,11 @@ def _subblock_group(n: int) -> np.ndarray:
     return g
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: K1 cannot be built")
-
-
-def _library_path() -> Path:
-    """The library's name is keyed on every kernel source and the flags,
-    so an edited source or header never loads a stale build."""
-    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-    for src in sorted(_CSRC.glob("*.cu*")):
-        h.update(src.name.encode() + b"\0" + src.read_bytes())
-    return _BUILD_DIR / f"satd_fused_{h.hexdigest()[:16]}.so"
-
-
 def build() -> tuple[float, str]:
     """Compile csrc/satd_fused.cu for sm_90a into csrc/_build/ unless the
-    library for these sources already exists. Returns the seconds spent
-    and what ptxas reported (registers, shared memory, spills), kept
-    beside the library."""
-    so = _library_path()
-    log = so.with_suffix(".ptxas.txt")
-    if so.exists():
-        return 0.0, log.read_text() if log.exists() else ""
-    t0 = time.perf_counter()
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", tmp,
-                               str(_SOURCE)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SOURCE}:\n{proc.stderr}")
-        log.write_text(proc.stderr)
-        os.replace(tmp, so)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return time.perf_counter() - t0, proc.stderr
+    library for this source and these flags exists: the seconds spent and
+    what ptxas reported (_nvcc.build)."""
+    return _nvcc.build(_SOURCE, _NVCC_FLAGS)
 
 
 def _lib() -> ctypes.CDLL:
@@ -140,7 +93,7 @@ def _lib() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _load_lib() -> ctypes.CDLL:
     build()
-    lib = ctypes.CDLL(str(_library_path()))
+    lib = ctypes.CDLL(str(_nvcc.library_path(_SOURCE, _NVCC_FLAGS)))
     fn = lib.hevc_satd_mode_costs
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
         ctypes.c_void_p]

@@ -84,7 +84,7 @@ def rank_main(rank: int, job: dict, init: str, results):
     try:
         from hevctpu_torch.ops import satd_fused
         from hevctpu_torch.parallel import ShardedEncoder, make_mesh
-        from hevctpu_torch.pipeline import clips
+        from hevctpu_torch.pipeline import clips, trace
         dev = job["device"]
         if dev == "cuda":
             torch.cuda.set_device(rank % torch.cuda.device_count())
@@ -99,13 +99,15 @@ def rank_main(rank: int, job: dict, init: str, results):
                             device=None if dev == "cuda" else dev)
         mesh.reset_tally()
         satd_fused.LAUNCHES = 0
+        s2 = trace.counters()["stage2.kernel_launches"]
         t0 = time.perf_counter()
         out = sh.encode(y, u, v)
         wall = time.perf_counter() - t0
+        s2 = trace.counters()["stage2.kernel_launches"] - s2
         res = dict(coords=[mesh.frame_index, mesh.tile_index],
                    tally=mesh.tally, wall_s=wall,
                    stage_ms=sh.enc.stage_ms(),
-                   k1_launches=satd_fused.LAUNCHES,
+                   k1_launches=satd_fused.LAUNCHES, s2_launches=s2,
                    device=str(sh.enc.device),
                    checksums=out["hash_checksum"].tolist())
         dist.destroy_process_group()

@@ -13,17 +13,19 @@ reconstruction (port of hevctpu/pipeline/encoder.py, main path).
   inverse -> recon.
 
 The JAX package runs stage 2 as nested lax.scans over every TU step of
-a static schedule, with fire masks taken on the device. On the card the
-port runs that form (_Wavefront: every diagonal at its fixed width, 424
-masked TU steps a diagonal, TU origins in device tensors), captured once
-per batch size, QP map and tile as CUDA graphs and replayed, with
-nothing read back to the host. On the CPU it runs the plain version of
-stage 2, planned on the host: the fire masks and availability vectors
-depend only on stage 1's partition and the geometry, so they are planned
-once per batch (_stage2_plan), uploaded in one copy, and a step that
-fires for no CTU of its diagonal is skipped (a masked step writes
-nothing). Both update the extended recon buffers in place and give the
-same planes.
+a static schedule, with fire masks taken on the device. The port keeps
+that form (_Wavefront: every diagonal at its fixed width, TU decisions
+on the device). On the card its gather and scatter are captured once per
+batch size, QP map and tile as CUDA graphs and replayed, and between
+them one launch of the stage-2 kernel (ops/stage2_ctu.py) codes each
+CTU's own TUs, with nothing read back to the host; eagerly on the CPU,
+424 masked TU steps a diagonal, it is the kernel's plain version. The
+CPU's encodes run stage 2 planned on the host: the fire masks and
+availability vectors depend only on stage 1's partition and the
+geometry, so they are planned once per batch (_stage2_plan), uploaded in
+one copy, and a step that fires for no CTU of its diagonal is skipped (a
+masked step writes nothing). All update the extended recon buffers in
+place and give the same planes.
 
 The options follow the JAX package: the full-RD quadtree search
 (search="rd"), per-CTU QP maps (qp_map, for LCU-level rate control), the
@@ -61,7 +63,8 @@ import torch.nn.functional as F
 
 from hevctpu_torch import device_table, get_device, rom
 from hevctpu_torch.ops import (ctu, deblock, intra, intra_mm, quant, rate,
-                               rate_ctx, rd, sao, satd_fused, transforms)
+                               rate_ctx, rd, sao, satd_fused, stage2_ctu,
+                               transforms)
 from hevctpu_torch.ops.quant import seqsum
 from hevctpu_torch.pipeline import trace
 
@@ -562,6 +565,40 @@ def _block16_schedule():
 
 
 @functools.lru_cache(maxsize=None)
+def _kernel_schedule():
+    """_Wavefront's walk as the stage-2 kernel reads it
+    (ops/stage2_ctu.py): (steps [340, 8] int32, masks int32). A step per
+    TU of _tu_order, from _block16_schedule: n, oy, ox (CTU-local luma),
+    the leaf log2 at which its luma TU fires (_tu; 2 for the TU4 steps of
+    _block), its chroma rule (0 none, 1 leaf == log2 n, 2 leaf <= 3: the
+    4x4 chroma TU under a TU4 leaf), the offsets in masks of its luma
+    [4n+1] and chroma [2n+1] decoded-before masks (0 where none), 0."""
+    ty, tx, _, av32, av32c, av16, av16c, av8, av8c, av4 = _block16_schedule()
+    steps, masks, size = [], [], [0]
+
+    def at(mask):
+        masks.append(mask)
+        size[0] += mask.size
+        return size[0] - mask.size
+
+    for q in range(4):
+        t = 4 * q
+        steps.append((32, ty[t], tx[t], 5, 1, at(av32[t]), at(av32c[t]), 0))
+        for t in range(4 * q, 4 * q + 4):
+            steps.append((16, ty[t], tx[t], 4, 1, at(av16[t]), at(av16c[t]),
+                          0))
+            for e in range(4):
+                ey, ex = ty[t] + (e // 2) * 8, tx[t] + (e % 2) * 8
+                steps.append((8, ey, ex, 3, 2, at(av8[t, e]),
+                              at(av8c[t, e]), 0))
+                for k in range(4):
+                    steps.append((4, ey + (k // 2) * 4, ex + (k % 2) * 4, 2,
+                                  0, at(av4[t, e, k]), 0, 0))
+    return (np.array(steps, np.int32),
+            np.concatenate(masks).astype(np.int32))
+
+
+@functools.lru_cache(maxsize=None)
 def _tu_order():
     """The z-order TU steps of one CTU as (size, oy, ox): ctu.tu_schedule
     with each TU8 step followed by its four TU4 steps (the reference's
@@ -651,11 +688,6 @@ def _stage2_plan(geom: Geometry, wavefront, tz: np.ndarray, c8: np.ndarray,
     return plan
 
 
-def _lam_on(lam) -> bool:
-    """A λ of scalar 0.0 switches its tool off; a per-row tensor is on."""
-    return isinstance(lam, torch.Tensor) or lam != 0.0
-
-
 def _tu_chain(vals, av, orig_blk, mode, n: int, qp, *, is_luma: bool,
               rdoq_lam, dst: bool, ts_lam, rate_qp: int, sbh: bool):
     """One TU for every row, from its boundary samples vals [R, 4n+1] in
@@ -678,13 +710,13 @@ def _tu_chain(vals, av, orig_blk, mode, n: int, qp, *, is_luma: bool,
     scan_tu = quant.scan_sel(mode, log2, is_luma)
 
     def quantize(cf, qp_, lam, scan):
-        if _lam_on(rdoq_lam):
+        if quant.lam_on(rdoq_lam):
             return quant.quantize_rdoq(cf, log2, qp_, lam, scan=scan,
                                        rate_qp=rate_qp)
         return quant.quantize(cf, log2, qp_)
 
     use_ts = None
-    if n == 4 and _lam_on(ts_lam):
+    if n == 4 and quant.lam_on(ts_lam):
         # transform-skip trial: the scaled residual quantizes in the same
         # dynamic range as the transform, so the two candidates compare
         # directly in the coefficient domain. Both go through one call,
@@ -946,10 +978,12 @@ class _Wavefront:
     TU16, TU8 and TU4 steps, _close scatters the results, inactive rows
     to the spare CTU row rc (the reference drops them out of range), and
     steps d. Everything a segment hands the next lives in a static buffer
-    (self.buf, allocated by the first diagonal), so that on the card the
-    segments are captured once as CUDA graphs, one a segment, and
-    replayed D, 4D, 16D and D times; on the CPU they run eagerly. Nothing
-    reads back to the host."""
+    (self.buf, allocated by the first diagonal). On the CPU the segments
+    run eagerly: stage 2's plain version. On the card _open and _close
+    are captured once as CUDA graphs and replayed D times each, and
+    between them one launch of the stage-2 kernel (ops/stage2_ctu.py)
+    does the quadrants' and blocks' work, each CTU and plane walking only
+    the TUs it codes. Nothing reads back to the host."""
 
     def __init__(self, enc, b: int, device: torch.device, tiles: int = 1,
                  ti: int = 0):
@@ -971,7 +1005,9 @@ class _Wavefront:
         self.d, self.q, self.t = (torch.zeros(1, dtype=torch.int64,
                                               device=device)
                                   for _ in range(3))
-        self.sched = _schedule_t(device)
+        # the schedule tables of _quad and _block, which run on the CPU
+        # only (the kernel takes its own, ops/stage2_ctu.py)
+        self.sched = _schedule_t(device) if device.type != "cuda" else None
         self.buf = {}
         self.qps = None
 
@@ -987,8 +1023,10 @@ class _Wavefront:
                      ("cbf4_y", 16), ("ts4_y", 16), ("ts8_u", 8),
                      ("ts8_v", 8)):
             self.state[k] = zeros(n, torch.bool)
-        # on the card: the graphs of one diagonal in replay order
+        # on the card: the graphs of _open and _close, and the kernel's
+        # arguments (pointers into self.buf)
         self.plan = None
+        self.kernel_args = None
 
     def _put(self, name: str, value: torch.Tensor) -> torch.Tensor:
         """Copy value into the static buffer `name` (made by the first
@@ -1118,20 +1156,20 @@ class _Wavefront:
     # -- driving -----------------------------------------------------------
 
     def _capture(self):
-        """Capture the segments as CUDA graphs on a side stream, after one
-        eager run of each segment that makes the buffers and warms the
-        tables and libraries (and leaves state and counters for run() to
-        reset). The capture tolerates other threads' CUDA calls (the
-        caller of a dispatch uploads meanwhile). The garbage collector
-        stays off meanwhile: a graph it destroyed on this thread would
-        invalidate the capture. A failure raises. Counts the capture, its
-        ms and the graphs' nodes (trace.counters())."""
+        """Capture _open and _close as CUDA graphs on a side stream, after
+        one eager run of each that makes the buffers and warms the tables
+        and libraries (and leaves state and counters for run() to reset),
+        and set the kernel's arguments up. The capture tolerates other
+        threads' CUDA calls (the caller of a dispatch uploads meanwhile).
+        The garbage collector stays off meanwhile: a graph it destroyed on
+        this thread would invalidate the capture. A failure raises. Counts
+        the capture, its ms and the graphs' nodes (trace.counters())."""
         dev = self.device
         cur = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(cur)
         t0 = time.perf_counter()
-        segments = (self._open, self._quad, self._block, self._close)
+        segments = (self._open, self._close)
         graphs, nodes = [], []
         gc.collect()
         collecting = gc.isenabled()
@@ -1159,12 +1197,17 @@ class _Wavefront:
             if collecting:
                 gc.enable()
         cur.wait_stream(side)
+        enc = self.enc
+        self.kernel_args = stage2_ctu.make_args(
+            self.buf, self.qps, rows=self.b * self.a,
+            hw=(enc.geom.h, enc.geom.w), rate_qps=(enc.qp, enc.qp_c),
+            sbh=enc.sbh, tu4=enc.nxn or enc.tu_split,
+            schedule=_kernel_schedule)
         trace.count("stage2.captures")
         trace.count("stage2.capture_ms", (time.perf_counter() - t0) * 1e3)
         if None not in nodes:
             trace.count("stage2.graph_nodes", sum(nodes))
-        g_open, g_quad, g_block, g_close = graphs
-        self.plan = [g_open] + ([g_quad] + [g_block] * 4) * 4 + [g_close]
+        self.plan = tuple(graphs)
 
     def run(self, inputs: dict, shard=None) -> dict:
         """Stage 2 of one batch: inputs {y, u, v: blocked source planes;
@@ -1173,7 +1216,7 @@ class _Wavefront:
         between diagonals (outside the graphs, copied into the halo
         buffers). Returns the 13 output planes, owning their memory.
         Inside a dispatch, the capture and each diagonal are spans of its
-        record (trace.py); the replays are counted."""
+        record (trace.py); the replays and kernel launches are counted."""
         for k, v in inputs.items():
             self._put("in_" + k, v)
         if self.tiled:
@@ -1196,9 +1239,11 @@ class _Wavefront:
                           for k in ("recon_y", "recon_u", "recon_v"))))
                     self._put("halo_l", halo_l), self._put("halo_r", halo_r)
                 if graphs:
-                    for gr in self.plan:
-                        gr.replay()
-                    trace.count("stage2.replays", len(self.plan))
+                    g_open, g_close = self.plan
+                    g_open.replay()
+                    stage2_ctu.launch(self.kernel_args, self.device)
+                    g_close.replay()
+                    trace.count("stage2.replays", 2)
                 else:
                     self._open()
                     for _ in range(4):
@@ -1835,11 +1880,11 @@ class FrameEncoder:
     def _reconstruct(self, yp, up, vp, mode_slot, cmode_slot, tusz_slot,
                      coded8, mode4_blk, qp_map=None, shard=None):
         """Stage 2, the wavefront reconstruction. On the card the
-        reference's traced form, replayed from CUDA graphs captured once
-        per (batch, QP map or not, tile) and cached on the encoder
-        (_reconstruct_traced); on the CPU its plain version, the
-        host-planned form (_reconstruct_planned). Both give the same 13
-        planes."""
+        kernel form: the traced form's gather and scatter replayed from
+        CUDA graphs captured once per (batch, QP map or not, tile) and
+        cached on the encoder, the stage-2 kernel between them
+        (_reconstruct_traced); on the CPU the host-planned form
+        (_reconstruct_planned). Both give the same 13 planes."""
         fn = (self._reconstruct_traced if yp.device.type == "cuda"
               else self._reconstruct_planned)
         return fn(yp, up, vp, mode_slot, cmode_slot, tusz_slot, coded8,
@@ -1849,10 +1894,13 @@ class FrameEncoder:
                             tusz_slot, coded8, mode4_blk, qp_map=None,
                             shard=None):
         """The reference's stage 2 (_Wavefront): every diagonal at its
-        fixed width, the full static TU schedule with fire masks taken on
-        the device. On the card its segments replay captured CUDA graphs,
-        with nothing read back to the host; on the CPU they run eagerly.
-        Arguments and outputs as _reconstruct_planned's."""
+        fixed width, the static TU schedule with fire decisions taken on
+        the device. On the card the gather and scatter replay captured
+        CUDA graphs and the stage-2 kernel codes each CTU's TUs between
+        them, with nothing read back to the host; on the CPU the
+        segments run eagerly (424 masked steps a diagonal, the kernel's
+        plain version). Arguments and outputs as
+        _reconstruct_planned's."""
         b = yp.shape[0]
         tiles, ti = (1, 0) if shard is None else (shard.tile,
                                                   shard.tile_index)

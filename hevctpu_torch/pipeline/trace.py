@@ -18,8 +18,8 @@ a parent (the span open around it on the same thread), are:
                  under each stage-2 run:
                    stage2.capture  the CUDA-graph capture, when it runs
                    stage2.diag     one a diagonal: the host's launch of
-                                   its graph replays (on the CPU, its
-                                   steps)
+                                   its two graph replays and its kernel
+                                   (on the CPU, its steps)
 
 Durations come from time.perf_counter_ns. Record.unix_ns maps such a
 reading onto the Unix-epoch nanoseconds that torch.profiler's events
@@ -27,9 +27,9 @@ carry, through an anchor sampled when the record is made. A span's end is
 None while it is open.
 
 counters() is a snapshot of the process's counts since import: stage 2's
-captures, capture ms, graph nodes, graph replays and graph-cache
-evictions (each one a capture again later), and the native CABAC coder's
-calls and host ms.
+captures, capture ms, graph nodes, graph replays, graph-cache evictions
+(each one a capture again later) and kernel launches (one a diagonal on
+the card), and the native CABAC coder's calls and host ms.
 """
 
 from __future__ import annotations
@@ -47,7 +47,8 @@ _NULL = contextlib.nullcontext()
 
 _COUNTS = {"stage2.captures": 0, "stage2.capture_ms": 0.0,
            "stage2.graph_nodes": 0, "stage2.replays": 0,
-           "stage2.evictions": 0, "cabac.calls": 0, "cabac.ms": 0.0}
+           "stage2.evictions": 0, "stage2.kernel_launches": 0,
+           "cabac.calls": 0, "cabac.ms": 0.0}
 _COUNTS_LOCK = threading.Lock()
 
 
