@@ -26,10 +26,25 @@ reading onto the Unix-epoch nanoseconds that torch.profiler's events
 carry, through an anchor sampled when the record is made. A span's end is
 None while it is open.
 
+On the card each stage also reads the caching allocator's host-side
+counts as it opens and as it closes (the bytes allocated, and the
+process's peak of them, as torch.cuda.memory_allocated and
+max_memory_allocated give them; no synchronisation, and the peak is
+never reset): Record.memory keeps, a stage, the bytes allocated at its
+start and at its end and how far the process peak rose during it.
+
 counters() is a snapshot of the process's counts since import: stage 2's
 captures, capture ms, graph nodes, graph replays, graph-cache evictions
 (each one a capture again later) and kernel launches (one a diagonal on
-the card), and the native CABAC coder's calls and host ms.
+the card), the native CABAC coder's calls and host ms, and on the card:
+
+  mem.rise_bytes.<stage>  the process peak's rises during that stage,
+                          summed over dispatches
+  mem.working_bytes       over the dispatches during which the peak
+                          rose, the most by which it stood above the
+                          bytes allocated as the dispatch's first stage
+                          began (the part of the peak an encode adds to
+                          what is held between encodes)
 """
 
 from __future__ import annotations
@@ -45,10 +60,15 @@ _SEQ = itertools.count(1)
 _local = threading.local()
 _NULL = contextlib.nullcontext()
 
+# The stages that read the allocator (every trace.stage name).
+STAGES = ("cnn", "stage1", "pass1_stage2", "pass2_stage1", "stage2",
+          "filters")
 _COUNTS = {"stage2.captures": 0, "stage2.capture_ms": 0.0,
            "stage2.graph_nodes": 0, "stage2.replays": 0,
            "stage2.evictions": 0, "stage2.kernel_launches": 0,
-           "cabac.calls": 0, "cabac.ms": 0.0}
+           "cabac.calls": 0, "cabac.ms": 0.0,
+           **{f"mem.rise_bytes.{s}": 0 for s in STAGES},
+           "mem.working_bytes": 0}
 _COUNTS_LOCK = threading.Lock()
 
 
@@ -56,6 +76,14 @@ def count(name: str, n=1):
     """Add n to the counter `name` (one of counters()'s keys)."""
     with _COUNTS_LOCK:
         _COUNTS[name] += n
+
+
+def count_max(name: str, n):
+    """Raise the counter `name` (one of counters()'s keys) to n if it is
+    below."""
+    with _COUNTS_LOCK:
+        if n > _COUNTS[name]:
+            _COUNTS[name] = n
 
 
 def counters() -> dict:
@@ -90,6 +118,16 @@ class StageClock:
             torch.cuda.synchronize(self.device)
             return {n: a.elapsed_time(b) for a, n, b in pairs}
         return {n: (b - a) * 1e3 for a, n, b in pairs}
+
+
+def allocator(device: torch.device) -> tuple | None:
+    """(bytes allocated, the process's peak of them) in the caching
+    allocator of a card, read on the host; None off the card."""
+    if device.type != "cuda":
+        return None
+    stats = torch.cuda.memory_stats_as_nested_dict(device)
+    b = stats["allocated_bytes"]["all"]
+    return b["current"], b["peak"]
 
 
 class Span:
@@ -135,12 +173,20 @@ class _Open:
 
 class _Stage(_Open):
     """A span that marks the stage clock under its own name as it closes
-    (not when it raises)."""
-    __slots__ = ()
+    (not when it raises), and on the card reads the allocator as it opens
+    and closes (Record.memory)."""
+    __slots__ = ("mem",)
+
+    def __enter__(self) -> Span:
+        self.mem = allocator(self.rec.clock.device)
+        return super().__enter__()
 
     def __exit__(self, typ, value, tb):
         if typ is None:
             self.rec.clock.mark(self.name)
+            if self.mem is not None:
+                self.rec.stage_memory(self.name, self.mem,
+                                      allocator(self.rec.clock.device))
         super().__exit__(typ, value, tb)
 
 
@@ -177,13 +223,16 @@ class Record:
     """One dispatch's record: seq (a number unique in the process, shared
     by all its spans), clock (its StageClock), spans (in the order they
     opened), diag_events ((stage2.diag span, CUDA event before, after),
-    card only) and anchor ((perf_counter_ns, time_ns) read together)."""
+    card only), memory ((stage, bytes allocated at its start, at its end,
+    the process peak's rise during it), card only) and anchor
+    ((perf_counter_ns, time_ns) read together)."""
 
     def __init__(self, device: torch.device):
         self.seq = next(_SEQ)
         self.clock = StageClock(device)
         self.spans = []
         self.diag_events = []
+        self.memory = []
         p0 = time.perf_counter_ns()
         t = time.time_ns()
         self.anchor = ((p0 + time.perf_counter_ns()) // 2, t)
@@ -191,6 +240,15 @@ class Record:
     def span(self, name: str) -> _Open:
         """with record.span(name): a span on the calling thread."""
         return _Open(self, name)
+
+    def stage_memory(self, name: str, start: tuple, end: tuple):
+        """Keep stage `name`'s allocator readings (allocated, peak) at its
+        start and end, and count the peak's rise."""
+        (a0, p0), (a1, p1) = start, end
+        self.memory.append((name, a0, a1, p1 - p0))
+        if p1 > p0:
+            count(f"mem.rise_bytes.{name}", p1 - p0)
+            count_max("mem.working_bytes", p1 - self.memory[0][1])
 
     def stage_ms(self) -> dict:
         """The stage clock's ms a stage (waits for the device)."""

@@ -22,6 +22,7 @@ from hevctpu_torch.codec import decoder, headers
 from hevctpu_torch.models import checkpoint, convnet2
 from hevctpu_torch.pipeline import clips
 from hevctpu_torch.pipeline import encoder as tenc
+from test_torch_options import port_dtype
 
 
 # One torch thread a test process: the suite runs in several processes
@@ -67,7 +68,7 @@ def port(clip, labels):
 def test_output_keys_and_dtypes(ref, port):
     assert set(port) == set(ref)
     for k in ref:
-        assert np.asarray(port[k]).dtype == np.asarray(ref[k]).dtype, k
+        assert np.asarray(port[k]).dtype == port_dtype(ref, k), k
         assert np.shape(port[k]) == np.shape(ref[k]), k
 
 
@@ -78,6 +79,18 @@ def test_integer_output_equal(ref, port, key):
 
 def test_sse(ref, port):
     np.testing.assert_allclose(port["sse"], ref["sse"], rtol=1e-6)
+
+
+def test_sse_is_exact_past_float32():
+    """A 1080p plane whose SSE is 2**24 + 1, which float32 cannot hold:
+    the port's SSE reads it exactly."""
+    a = torch.zeros((1, 1080, 1920), dtype=torch.int32)
+    b = a.clone()
+    b.view(-1)[: 1 << 20] = 4               # 2**20 samples off by 4
+    b.view(-1)[1 << 20] = 1                 # and one off by 1
+    got = tenc._sse(a, b)
+    assert got.dtype == torch.int64 and got.tolist() == [(1 << 24) + 1]
+    assert float(np.float32((1 << 24) + 1)) != (1 << 24) + 1
 
 
 def test_encode_fused_labels(clip, params, labels, port):

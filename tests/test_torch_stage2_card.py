@@ -3,8 +3,10 @@ from CUDA graphs, the stage-2 kernel between them) against the
 host-planned form on the same card, with nothing read back to the host
 (torch.cuda.set_sync_debug_mode("error")), at 64x128 x 2: CNN labels, a
 random per-CTU QP map, two_pass, a tile axis of 2, RDOQ, SBH and TS each
-switched off, and every slot a TU4 leaf; and a capture that fails raises
-instead of giving way to another form.
+switched off, and every slot a TU4 leaf; at 120x128 x 2, whose bottom
+CTU row holds 56 lines as at 1080, with CNN labels and with every CTU
+unsplit (the edge alone splits CUs, down to 8x8); and a capture that
+fails raises instead of giving way to another form.
 
 Needs a card (marker gpu); it skips without one. On the card:
 python -m pytest tests/test_torch_stage2_card.py -m gpu"""
@@ -172,3 +174,46 @@ def test_capture_failure_raises(recorded, monkeypatch):
     with pytest.raises(RuntimeError):
         enc._reconstruct(*calls[0])
     enc._stage2.clear()
+
+
+@pytest.fixture(scope="module", params=["cnn", "unsplit"])
+def recorded_56(request):
+    """An encode at 120x128 x 2 on the card (2 x 2 CTUs, the bottom row 56
+    lines as at 1080 = 16 * 64 + 56): its encoder, stage 2's arguments
+    and the output; labels from ConvNet2, or 0 (every CTU unsplit)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: CUDA graphs have no CPU mode")
+    h = 120
+    y, u, v = clips.clip_sine(FRAMES, h, W, seed=1)
+    if request.param == "cnn":
+        cnn = convnet2.load_model(
+            checkpoint.load(os.path.join(ROOT, "CKPT_DOMAIN.npz")), "cuda")
+        labels = convnet2.predict_frame_labels(
+            cnn, *(torch.as_tensor(p.astype(np.int32)).cuda()
+                   for p in (y, u, v)), h, W).cpu().numpy()
+    else:
+        labels = np.zeros((FRAMES, 4, 16), np.int8)
+    enc = tenc.FrameEncoder(h, W, QP, device="cuda")
+    calls = []
+    real = enc._reconstruct
+
+    def recording(*a):
+        calls.append(a)
+        return real(*a)
+
+    enc._reconstruct = recording
+    out = enc.encode(y, u, v, labels)
+    assert len(calls) == 1
+    return enc, calls[0], out
+
+
+@pytest.mark.gpu
+def test_56_line_ctu_row_equal_planned(recorded_56):
+    """The kernel form against the planned form where the bottom CTU row
+    is cut at 56 lines: its last 8 lines are 8x8 CUs."""
+    enc, args, out = recorded_56
+    assert (out["depth8"][:, 14, :] == 3).all()
+    enc._stage2.clear()
+    want = enc._reconstruct_planned(*args[:8])
+    for _ in range(2):          # the call that captures, then a replay
+        _traced_equal(enc, args[:8], want)

@@ -10,14 +10,21 @@ process's counters, at 64x128 on the CPU (D = 2 stage-2 diagonals):
   thread none once an encode has returned;
 - the native coder counts a call a picture, and its ms;
 - a span read inside a torch.profiler range lies inside that range on
-  the profiler's clock, within 50 us, after Record.unix_ns.
+  the profiler's clock, within 50 us, after Record.unix_ns;
+- the memory counters: present from import and 0 on the CPU, count_max
+  safe across threads, and the peak's rises and mem.working_bytes on a
+  faked sequence of allocator readings.
 
-On the card (marker gpu): stage 2's counters, and each stage2.diag span
+On the card (marker gpu): stage 2's counters, each stage2.diag span
 begins before the first kernel of its diagonal's graph replays in the
-profiler's events: python -m pytest tests/test_torch_trace.py -m gpu
+profiler's events, and one encode's peak rises add up to the process
+peak less the bytes held as its first stage began:
+python -m pytest tests/test_torch_trace.py -m gpu
 """
 
 import gc
+import sys
+import threading
 import weakref
 
 import numpy as np
@@ -198,6 +205,114 @@ def test_counters_are_a_snapshot():
         trace.count("stage2.replay")
 
 
+MEM_KEYS = [f"mem.rise_bytes.{s}" for s in trace.STAGES] + [
+    "mem.working_bytes"]
+
+
+def test_memory_counters_are_zero_on_the_cpu(records):
+    """Every memory counter is there from import, and a CPU encode reads
+    no allocator: the counters stay 0 and the records keep no memory."""
+    c = trace.counters()
+    assert set(MEM_KEYS) <= set(c)
+    assert [c[k] for k in MEM_KEYS] == [0] * len(MEM_KEYS)
+    assert all(r[0].trace.memory == [] for r in records.values())
+    assert trace.allocator(torch.device("cpu")) is None
+
+
+@pytest.fixture
+def own_counts(monkeypatch):
+    """The counters of a test alone (the process's are left as they
+    were)."""
+    counts = dict.fromkeys(trace._COUNTS, 0)
+    monkeypatch.setattr(trace, "_COUNTS", counts)
+    return counts
+
+
+def test_count_max_is_safe_across_threads(own_counts):
+    """Threads, more than cores, raise one counter and add to another at
+    once with a short switch interval: the maximum and the sum come out
+    whole."""
+    threads, steps = 16, 2000
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+
+    def work(i):
+        for j in range(steps):
+            trace.count_max("mem.working_bytes", i * steps + j)
+            trace.count("mem.rise_bytes.stage1")
+
+    try:
+        ts = [threading.Thread(target=work, args=(i,))
+              for i in range(threads)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in ts)
+    finally:
+        sys.setswitchinterval(old)
+    c = trace.counters()
+    assert c["mem.working_bytes"] == threads * steps - 1
+    assert c["mem.rise_bytes.stage1"] == threads * steps
+    trace.count_max("mem.working_bytes", 5)
+    assert trace.counters()["mem.working_bytes"] == threads * steps - 1
+    with pytest.raises(KeyError):
+        trace.count_max("mem.working", 1)
+
+
+# (stage, allocator reading (allocated, peak) at its start, at its end)
+# for four dispatches in turn
+FAKED = [
+    [("cnn", (100, 100), (150, 180)),      # peak +80
+     ("stage1", (150, 180), (120, 400)),   # +220: 400 over the 100 held
+     ("stage2", (120, 400), (130, 400)),
+     ("filters", (130, 400), (110, 400))],
+    [("cnn", (50, 400), (60, 400)),        # the peak does not rise: its
+     ("stage1", (60, 400), (70, 400))],    # 350 over 50 is not this one's
+    [("cnn", (200, 400), (210, 400)),
+     ("stage1", (210, 400), (250, 450))],  # +50: 250 over 200
+    [("stage1", (10, 450), (20, 460)),     # +10
+     ("pass1_stage2", (20, 460), (20, 460)),
+     ("pass2_stage1", (20, 460), (30, 470)),   # +10
+     ("stage2", (30, 470), (40, 500))],    # +30: 490 over 10
+]
+
+
+def test_working_bytes_on_faked_readings(own_counts, monkeypatch):
+    readings = iter([r for d in FAKED for _, a, b in d for r in (a, b)])
+    monkeypatch.setattr(trace, "allocator", lambda device: next(readings))
+    recs, working = [], []
+    for d in FAKED:
+        rec = trace.Record(torch.device("cpu"))
+        with trace.active(rec):
+            for name, _, _ in d:
+                with trace.stage(name):
+                    pass
+        recs.append(rec)
+        working.append(own_counts["mem.working_bytes"])
+    assert next(readings, None) is None
+    assert working == [300, 300, 300, 490]
+    for rec, d in zip(recs, FAKED):
+        assert rec.memory == [(n, a[0], b[0], b[1] - a[1]) for n, a, b in d]
+    c = trace.counters()
+    assert {k: c[k] for k in MEM_KEYS} == {
+        "mem.rise_bytes.cnn": 80, "mem.rise_bytes.stage1": 220 + 50 + 10,
+        "mem.rise_bytes.pass1_stage2": 0, "mem.rise_bytes.pass2_stage1": 10,
+        "mem.rise_bytes.stage2": 30, "mem.rise_bytes.filters": 0,
+        "mem.working_bytes": 490}
+
+
+def test_a_stage_that_raises_keeps_no_memory(own_counts, monkeypatch):
+    readings = iter([(0, 0), (5, 7)])
+    monkeypatch.setattr(trace, "allocator", lambda device: next(readings))
+    rec = trace.Record(torch.device("cpu"))
+    with trace.active(rec), pytest.raises(ValueError):
+        with trace.stage("stage1"):
+            raise ValueError
+    assert rec.memory == [] and next(readings) == (5, 7)
+    assert own_counts["mem.rise_bytes.stage1"] == 0
+
+
 def test_span_on_the_profilers_clock():
     """A span read on the main thread inside a record_function range lies
     inside that range's interval in the profiler's events, within 50 us,
@@ -302,3 +417,35 @@ def test_card_diagonal_span_precedes_its_kernels(clip):
         first = min(e.start_ns() for e in kernels
                     if e.correlation_id() in ids)
         assert a <= first
+
+
+@pytest.mark.gpu
+def test_card_memory_rises_add_up(clip):
+    """One encode on the card with the process peak set to the bytes held
+    before it: its stages' rises add up to the process peak less the
+    bytes allocated as its first stage began (those hold the upload), and
+    the counters rise by as much."""
+    _card()
+    y, u, v = clip
+    cnn = convnet2.load_model(convnet2.init_params(0), "cuda")
+    enc = tenc.FrameEncoder(H, W, QP, device="cuda")
+    enc.collect(enc.encode_fused_dispatch(cnn, y, u, v))
+    enc._last = None        # its output freed now, not during the next
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = trace.counters()
+    h = enc.encode_fused_dispatch(cnn, y, u, v)
+    enc.collect(h)
+    peak = torch.cuda.max_memory_allocated()
+    after = trace.counters()
+    mem = h.trace.memory
+    assert [m[0] for m in mem] == ["cnn", "stage1", "stage2", "filters"]
+    assert mem[0][1] >= held + sum(p.size for p in (y, u, v))
+    rises = sum(m[3] for m in mem)
+    assert rises > 0 and rises == peak - mem[0][1]
+    assert all(m[3] >= 0 for m in mem)
+    assert sum(after[f"mem.rise_bytes.{s}"] - before[f"mem.rise_bytes.{s}"]
+               for s in trace.STAGES) == rises
+    assert after["mem.working_bytes"] >= rises

@@ -18,7 +18,7 @@ from hevctpu.pipeline import encoder as jenc
 from hevctpu_torch.codec import decoder, headers
 from hevctpu_torch.models import checkpoint, convnet2
 from hevctpu_torch.pipeline import encoder as tenc
-from test_torch_options import KEYS_RD, busy_clip
+from test_torch_options import KEYS_RD, busy_clip, port_dtype
 
 
 # One torch thread a test process: the suite runs in several processes
@@ -55,7 +55,7 @@ def test_two_pass_keys_and_dtypes(pair_two):
     ref, port, _ = pair_two
     assert set(port) == set(ref)
     for k in ref:
-        assert np.asarray(port[k]).dtype == np.asarray(ref[k]).dtype, k
+        assert np.asarray(port[k]).dtype == port_dtype(ref, k), k
         assert np.shape(port[k]) == np.shape(ref[k]), k
 
 
