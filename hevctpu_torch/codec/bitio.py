@@ -8,6 +8,8 @@ prevention (00 00 0x -> 00 00 03 0x), start codes.
 
 from __future__ import annotations
 
+import re
+
 
 class BitWriter:
     def __init__(self):
@@ -107,17 +109,15 @@ class BitReader:
         return self._pos >> 3
 
 
+# Two zero bytes before a byte <= 3: the place of an emulation-prevention
+# byte. The match ends before that byte, so a search resumes at it, as
+# the count of zeros restarts after an inserted 0x03.
+_EPB_AT = re.compile(rb"\x00\x00(?=[\x00-\x03])")
+
+
 def rbsp_to_ebsp(rbsp: bytes) -> bytes:
     """Insert emulation-prevention bytes (7.4.2)."""
-    out = bytearray()
-    zeros = 0
-    for b in rbsp:
-        if zeros >= 2 and b <= 3:
-            out.append(3)
-            zeros = 0
-        out.append(b)
-        zeros = zeros + 1 if b == 0 else 0
-    return bytes(out)
+    return _EPB_AT.sub(b"\x00\x00\x03", bytes(rbsp))
 
 
 def ebsp_to_rbsp(ebsp: bytes) -> bytes:

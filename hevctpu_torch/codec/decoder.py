@@ -12,7 +12,10 @@ encoder kernels, and free of per-TU device dispatch.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
+import os
+import threading
 
 import numpy as np
 
@@ -151,6 +154,22 @@ def parameter_set_nals(cfg: headers.StreamConfig) -> bytes:
 NAL_CRA = 21
 
 
+_POOL = None
+_POOL_LOCK = threading.Lock()
+
+
+def _picture_pool() -> concurrent.futures.ThreadPoolExecutor:
+    """The threads that code a batch's pictures: the process's cores but
+    two, left to the caller and the encoder's dispatch worker; at most 8."""
+    global _POOL
+    with _POOL_LOCK:
+        if _POOL is None:
+            n = max(1, min(8, len(os.sched_getaffinity(0)) - 2))
+            _POOL = concurrent.futures.ThreadPoolExecutor(
+                n, thread_name_prefix="slice")
+        return _POOL
+
+
 def encode_frame_nals(cfg: headers.StreamConfig, fr: dict,
                       use_native: bool | None = None,
                       nal_type: int = headers.NAL_IDR_W_RADL,
@@ -204,19 +223,13 @@ def encode_frame_nals(cfg: headers.StreamConfig, fr: dict,
     fcfg = cfg
     if "qp" in fr and int(fr["qp"]) != cfg.qp:
         fcfg = dataclasses.replace(cfg, qp=int(fr["qp"]))
-    out = bytearray()
-    b = fr["depth8"].shape[0]
-    for i in range(b):
+    htype = fcfg.hash_type
+
+    def picture(i: int) -> bytes:
+        """Picture i's slice NAL and its hash SEI."""
         poc = poc0 + i
-        if use_native and nal_type == headers.NAL_IDR_W_RADL:
-            rbsp = headers.write_slice_header(fcfg).data()
-            rbsp += native.encode_slice_data(
-                fcfg.width, fcfg.height, fcfg.qp, fr, i,
-                sbh=fcfg.sign_data_hiding,
-                max_tu_depth=fcfg.max_tu_depth_intra,
-                transform_skip=fcfg.transform_skip)
-        elif use_native:
-            # native coder emits slice data only; prepend the CRA header
+        if use_native:
+            # native coder emits slice data only; prepend the header
             rbsp = headers.write_slice_header(
                 fcfg, nal_type=nal_type, poc=poc).data()
             rbsp += native.encode_slice_data(
@@ -227,32 +240,38 @@ def encode_frame_nals(cfg: headers.StreamConfig, fr: dict,
         else:
             rbsp = SliceEncoder(fcfg, fr, i,
                                 nal_type=nal_type, poc=poc).encode()
-        out += bitio.nal_unit(nal_type, rbsp)
-        htype = fcfg.hash_type
-        if htype != "none":
-            if "recon_y" in fr:
-                sei = headers.write_hash_sei(
-                    fr["recon_y"][i], fr["recon_u"][i], fr["recon_v"][i],
-                    htype)
-            elif "hash_checksum" in fr:
-                # device-computed digests (encoder lite path: the recon
-                # planes never cross the host link); only checksum is a
-                # parallel reduction, so that is the type carried.
-                assert htype == "checksum", (
-                    f"hash_type={htype} needs recon planes; the lite "
-                    "encode carries only the device checksum")
-                dig = [int(fr["hash_checksum"][i][c]) & 0xffffffff
-                       for c in range(3)]
-                sei = headers.write_hash_sei_digests(
-                    [bytes([(d >> 24) & 0xff, (d >> 16) & 0xff,
-                            (d >> 8) & 0xff, d & 0xff]) for d in dig],
-                    "checksum")
-            else:
-                sei = None
-            if sei is not None:
-                out += bitio.nal_unit(headers.NAL_SEI_SUFFIX, sei,
-                                      temporal_id=0)
-    return bytes(out)
+        out = bitio.nal_unit(nal_type, rbsp)
+        if htype == "none":
+            return out
+        if "recon_y" in fr:
+            sei = headers.write_hash_sei(
+                fr["recon_y"][i], fr["recon_u"][i], fr["recon_v"][i],
+                htype)
+        elif "hash_checksum" in fr:
+            # device-computed digests (encoder lite path: the recon
+            # planes never cross the host link); only checksum is a
+            # parallel reduction, so that is the type carried.
+            assert htype == "checksum", (
+                f"hash_type={htype} needs recon planes; the lite "
+                "encode carries only the device checksum")
+            dig = [int(fr["hash_checksum"][i][c]) & 0xffffffff
+                   for c in range(3)]
+            sei = headers.write_hash_sei_digests(
+                [bytes([(d >> 24) & 0xff, (d >> 16) & 0xff,
+                        (d >> 8) & 0xff, d & 0xff]) for d in dig],
+                "checksum")
+        else:
+            return out
+        return out + bitio.nal_unit(headers.NAL_SEI_SUFFIX, sei,
+                                    temporal_id=0)
+
+    b = fr["depth8"].shape[0]
+    # All-Intra pictures are independent slices: the native coder, called
+    # through ctypes without the GIL, codes a batch's pictures on the
+    # pool's threads side by side, and the NALs join in picture order.
+    if use_native and b > 1:
+        return b"".join(_picture_pool().map(picture, range(b)))
+    return b"".join(map(picture, range(b)))
 
 
 def encode_stream(cfg: headers.StreamConfig, frames: list[dict],

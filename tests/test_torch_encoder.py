@@ -118,6 +118,57 @@ def test_python_coder_equals_native(port):
             == decoder.encode_stream(cfg, [port], use_native=True))
 
 
+@pytest.mark.parametrize("hash_type", ["md5", "checksum"])
+def test_cra_stream_equals_reference(ref, port, hash_type):
+    """Two batches under cra_refresh with the prefix SEIs: the second
+    batch's two CRA pictures are coded on the picture threads."""
+    got = decoder.encode_stream(headers.StreamConfig(
+        width=W, height=H, qp=QP, hash_type=hash_type), [port, port],
+        prefix_seis=True, cra_refresh=True)
+    want = jdecoder.encode_stream(jheaders.StreamConfig(
+        width=W, height=H, qp=QP, hash_type=hash_type), [ref, ref],
+        prefix_seis=True, cra_refresh=True)
+    assert got == want
+
+
+def test_batch_stream_equals_one_picture_at_a_time(port):
+    """A batch's pictures coded on threads join in picture order: the
+    stream equals the parameter sets and each picture coded alone."""
+    cfg = headers.StreamConfig(width=W, height=H, qp=QP)
+    alone = [{k: (v[i:i + 1] if isinstance(v, np.ndarray) and v.ndim > 0
+                  and v.shape[0] == FRAMES else v) for k, v in port.items()}
+             for i in range(FRAMES)]
+    want = decoder.parameter_set_nals(cfg) + b"".join(
+        decoder.encode_frame_nals(cfg, fr) for fr in alone)
+    assert decoder.encode_stream(cfg, [port]) == want
+
+
+def _ebsp_by_bytes(rbsp: bytes) -> bytes:
+    """7.4.2 byte by byte: a 0x03 before any byte <= 3 that follows two
+    zero bytes, the zeros counted afresh after it."""
+    out, zeros = bytearray(), 0
+    for b in rbsp:
+        if zeros >= 2 and b <= 3:
+            out.append(3)
+            zeros = 0
+        out.append(b)
+        zeros = zeros + 1 if b == 0 else 0
+    return bytes(out)
+
+
+@pytest.mark.parametrize("alphabet", [(0, 1, 2, 3, 4, 5), (0, 0, 0, 3, 255)])
+def test_emulation_prevention_equals_byte_rule(alphabet):
+    from hevctpu_torch.codec import bitio
+    rng = np.random.default_rng(len(alphabet))
+    cases = [b"", b"\0\0", b"\0\0\0", b"\0\0\0\0\1", b"\0\0\3\0\0\4"]
+    cases += [bytes(rng.choice(alphabet, size=int(n)).astype(np.uint8))
+              for n in rng.integers(0, 48, size=3000)]
+    for rbsp in cases:
+        ebsp = bitio.rbsp_to_ebsp(rbsp)
+        assert ebsp == _ebsp_by_bytes(rbsp), rbsp
+        assert bitio.ebsp_to_rbsp(ebsp) == rbsp, rbsp
+
+
 def test_decoder_reproduces_recon(port):
     stream = decoder.encode_stream(
         headers.StreamConfig(width=W, height=H, qp=QP), [port])
