@@ -18,6 +18,12 @@ Phases (each fails the run with a nonzero exit):
      intra.predict_all_modes, on the card, as the oracle of the matmul
      form (intra_mm.predict_all_modes_mm) K1's tap table comes from, at
      every n, luma and chroma;
+ 2b. stage 1's candidate-RD kernel (ops/stage1_rd.py) against its plain
+     version (encoder._dense_rd_plain) on the card at the main path's
+     shapes (416x240 x 32, 1088x1920 x 8): one stage-1 decision's 25
+     calls, bit-identical costs; then the 25 launches timed beside the
+     plain version's and the bound (the forward transforms' multiply-adds
+     at the INT32 rate);
   3. ConvNet2 labels on the card equal the CPU port's on a 416x240 frame;
   4. the main path at 416x240, 8 frames: encode_fused_dispatch + collect +
      encode_stream, decoded back with the hash SEI verifying, K1 launched
@@ -133,11 +139,15 @@ Every encode on the card above runs stage 2 in the kernel form; the
 card-vs-CPU checks hold it to the CPU's planned form. Each path that
 checks K1's launches also checks the stage-2 kernel's: one a wavefront
 diagonal of each stage-2 run (an encode runs stage 2 once, twice under
-two_pass; a rank's tile walks every diagonal of the picture).
-Then one JSON line of the paths, one of the kernels (K1's and the stage-2
-kernel's launches summed over the paths 4, 5, 7, 8, 9, 10, 11's card
-encodes, 12a, 13's ranks, 15, 16, 17 and 18), the card's name and power
-limit, and the last line {"ok": true, "device": {...}}.
+two_pass; a rank's tile walks every diagonal of the picture); and stage
+1's RD kernel's: one for each call of encoder._dense_rd_candidates on
+the card under the global rate model (25 a stage-1 decision, none under
+rate_model="ctx"), never more than 25 for each 4 of K1's launches.
+Then one JSON line of the paths, one of the kernels (K1's, the stage-2
+kernel's and stage 1's RD kernel's launches summed over the paths 4, 5,
+7, 8, 9, 10, 11's card encodes, 12a, 13's ranks, 15, 16, 17 and 18), the
+card's name and power limit, and the last line {"ok": true, "device":
+{...}}.
 
 Run from the repository root: python3 chip_smoke.py
 It exits nonzero, printing no result, without CUDA or without the repo.
@@ -248,6 +258,53 @@ def check_s2(label: str, since: int, h: int, w: int, runs: int) -> int:
              f"({runs} stage-2 run(s) of {diagonals(h, w)} diagonals)")
     S2_LAUNCHED[label] = S2_LAUNCHED.get(label, 0) + n
     return n
+
+
+# Calls of encoder._dense_rd_candidates on the card under the global rate
+# model, each of which must be one launch of stage 1's RD kernel
+# (record_s3_calls counts them), and the kernel's launches on each path
+# checked below, by the path's label.
+S3_EXPECTED = [0]
+S3_LAUNCHED = {}
+# the kernel's launches a stage-1 decision: 4 luma sizes, the 64x64 CU's
+# 32x32 TUs, 12 TU-tree sizes, 4 chroma sizes x 2 planes; K1 launches 4
+S3_PER_DECISION = 25
+
+
+def s3_mark() -> tuple:
+    """(stage 1's RD kernel launches so far, the calls so far that must
+    have launched it)."""
+    from hevctpu_torch.pipeline import trace
+    return trace.counters()["stage1.rd_kernel_launches"], S3_EXPECTED[0]
+
+
+def check_s3(label: str, since: tuple, k1: int) -> int:
+    """Since the mark `since` (s3_mark()), stage 1's RD kernel must have
+    launched once for every candidate-RD call on the card under "global"
+    (none under "ctx" or on the CPU), at most 25 for each 4 of K1's k1
+    launches (a decision). Records the launches under label and returns
+    them."""
+    got, want = (now - then for now, then in zip(s3_mark(), since))
+    if got != want or got > S3_PER_DECISION * k1 // 4:
+        fail(f"{label}: stage 1's RD kernel launched {got} times for {want} "
+             f"candidate-RD calls on the card under the global rate model "
+             f"and {k1} K1 launches")
+    S3_LAUNCHED[label] = S3_LAUNCHED.get(label, 0) + got
+    return got
+
+
+def record_s3_calls():
+    """Wrap encoder._dense_rd_candidates so that every call that must go
+    through stage 1's RD kernel is counted in S3_EXPECTED."""
+    from hevctpu_torch.pipeline import encoder as E
+    calls = E._dense_rd_candidates
+
+    def recording(plane, *a, **k):
+        if plane.device.type == "cuda" and k.get("rate_model") == "global":
+            S3_EXPECTED[0] += 1
+        return calls(plane, *a, **k)
+
+    E._dense_rd_candidates = recording
 
 
 def record_k1_shapes():
@@ -404,6 +461,91 @@ def phase_k1(rng, dev, sm_hz):
                           else "bytes"), shapes=shapes, checked=checked)
 
 
+# stage 1's RD kernel at the main path's shapes (bench_torch.py's batches)
+S3_JOBS = ((240, 416, 32), (1088, 1920, 8))
+
+
+def stage1_rd_calls() -> list:
+    """(n, luma, K) of the candidate-RD calls of one stage-1 decision
+    (FrameEncoder._decide under "global"), in its order: 4 luma sizes (K1's
+    top 8 or 3 and the 3 MPMs), the 64x64 CU's four 32x32 TUs, 12 TU-tree
+    sizes at the CU's one mode, 4 chroma sizes x 2 planes (the 4 list
+    modes and DM)."""
+    calls = [(32, True, 6), (16, True, 6), (8, True, 11), (4, True, 11),
+             (32, True, 6)]
+    for cu_log2 in (6, 5, 4, 3):
+        calls += [(1 << s, True, 1)
+                  for s in range(max(2, cu_log2 - 3), min(cu_log2, 5) + 1)]
+    for n in (64, 32, 16, 8):
+        calls += [(n // 2, False, 5)] * 2
+    return calls
+
+
+def phase_stage1_rd(dev, sm_hz) -> dict:
+    """Stage 1's RD kernel against its plain version (_dense_rd_plain, on
+    the card) at the main path's shapes: one decision's 25 calls on
+    clip_sine planes, random candidate modes, QP 32, bit-identical costs;
+    then the 25 launches timed (CUDA events) beside the plain version's
+    and the bound: the forward transforms' multiply-adds (2 n^3 a
+    candidate) at the INT32 rate. Returns {shape: row}."""
+    import torch
+    from hevctpu_torch import rom
+    from hevctpu_torch.ops import rate, stage1_rd
+    from hevctpu_torch.pipeline import clips
+    from hevctpu_torch.pipeline import encoder as E
+    rng = np.random.default_rng(19)
+    qp_c = rom.chroma_qp_from_luma(QP)
+    lam = rate.lambda_rd(QP)
+    lam_c = lam / rate.chroma_dist_weight(QP, qp_c)
+    calls = stage1_rd_calls()
+    res = {}
+    for h, w, frames in S3_JOBS:
+        g = E.Geometry(h, w)
+        y, u, v = (torch.as_tensor(p.astype(np.int32), device=dev)
+                   for p in clips.clip_sine(frames, h, w, seed=0))
+        planes = (E.pad_plane(y, g.hp, g.wp).contiguous(),
+                  E.pad_plane(u, g.hp // 2, g.wp // 2).contiguous(),
+                  E.pad_plane(v, g.hp // 2, g.wp // 2).contiguous())
+        args, macs = [], 0
+        for i, (n, luma, k) in enumerate(calls):
+            plane = planes[0] if luma else planes[1 + i % 2]
+            r, c = plane.shape[1] // n, plane.shape[2] // n
+            cand = torch.as_tensor(rng.integers(0, 35, (frames, r, c, k)),
+                                   dtype=torch.int32, device=dev)
+            kw = dict(is_luma=luma, scale=1 if luma else 2,
+                      rate_model="global")
+            args.append((plane, g, n, cand, QP if luma else qp_c,
+                         lam if luma else lam_c, kw))
+            macs += frames * r * c * k * 2 * n ** 3
+        before = stage1_rd.LAUNCHES
+        for i, (plane, g_, n, cand, qp, lm, kw) in enumerate(args):
+            got = E._dense_rd_candidates(plane, g_, n, cand, qp, lm, **kw)
+            want = E._dense_rd_plain(plane, g_, n, cand, qp, lm, **kw)
+            if not torch.equal(got, want):
+                fail(f"stage 1's RD kernel differs from its plain version at "
+                     f"{w}x{h} x {frames}, call {i} {calls[i]}: "
+                     f"{int((got != want).sum())} of {got.numel()} costs, "
+                     f"max {float((got - want).abs().max())}")
+        if stage1_rd.LAUNCHES - before != len(calls):
+            fail(f"stage 1's RD kernel launched {stage1_rd.LAUNCHES - before} "
+                 f"times for {len(calls)} calls")
+        t_k = cuda_ms(lambda: [E._dense_rd_candidates(p, g_, n, c, q, lm,
+                                                       **kw)
+                               for p, g_, n, c, q, lm, kw in args], 5)
+        t_p = cuda_ms(lambda: [E._dense_rd_plain(p, g_, n, c, q, lm, **kw)
+                               for p, g_, n, c, q, lm, kw in args], 1)
+        bound = macs / (INT32_LANES * sm_hz) * 1e3
+        shape = f"{w}x{h}x{frames}"
+        res[shape] = dict(launches=len(calls), ms=t_k, plain_ms=t_p,
+                          bound_ms=bound, share_of_bound=bound / t_k,
+                          macs=macs)
+        log(f"  stage 1 RD {shape}: {len(calls)} calls bit-identical to the "
+            f"plain version; kernel {t_k:.3f} ms, plain {t_p:.3f} ms, bound "
+            f"{bound:.4f} ms ({macs} multiply-adds at the INT32 rate), "
+            f"kernel at {bound / t_k:.4f} of the bound")
+    return res
+
+
 def phase_predict_oracle(rng, dev):
     """The gather-form predictor (intra.predict_all_modes) on the card is
     the oracle of the matmul form that K1's tap table comes from
@@ -472,7 +614,7 @@ def run_path(h, w, frames, cnn, dev, label, want_launches=4, **options):
     cfg = headers.StreamConfig(width=w, height=h, qp=QP,
                                hash_type="checksum")
     satd_fused.LAUNCHES = 0
-    since = s2_launches()
+    since, s3 = s2_launches(), s3_mark()
     t0 = time.perf_counter()
     out = enc.collect(enc.encode_fused_dispatch(cnn, y, u, v))
     t1 = time.perf_counter()
@@ -484,6 +626,7 @@ def run_path(h, w, frames, cnn, dev, label, want_launches=4, **options):
         fail(f"{label}: K1 launched {launches} times for one batch, not "
              f"{want_launches}")
     s2 = check_s2(label, since, h, w, 2 if options.get("two_pass") else 1)
+    s3 = check_s3(label, s3, launches)
     dec = decoder.Decoder()
     got = dec.decode(stream)
     if not (dec.hashes_ok and all(dec.hashes_ok) and len(got) == frames):
@@ -500,7 +643,7 @@ def run_path(h, w, frames, cnn, dev, label, want_launches=4, **options):
                  encode_s=t1 - t0, cabac_ms=(t2 - t1) * 1e3,
                  stage_ms={k: round(v, 3) for k, v in stages.items()},
                  bytes=len(stream), psnr_y=psnr_y(out["sse"], h, w),
-                 k1_launches=launches, s2_launches=s2,
+                 k1_launches=launches, s2_launches=s2, s3_launches=s3,
                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     log(f"  {label}: {json.dumps(stats)}")
     return stats, out, stream
@@ -596,16 +739,17 @@ def phase_cli(tmp: str, extra, frames: int, label: str, want_launches: int,
             "--height", "240", "-f", str(frames), "-b", bs, "--recon", rec,
             *extra]
     satd_fused.LAUNCHES = 0
-    since = s2_launches()
+    since, s3 = s2_launches(), s3_mark()
     text, wall = run_cli(argv, label)
     launches = satd_fused.LAUNCHES
     if launches != want_launches:
         fail(f"{label}: K1 launched {launches} times, not {want_launches}")
     s2 = check_s2(label, since, 240, 416, s2_runs)
+    s3 = check_s3(label, s3, launches)
     dec = check_decode(bs, rec, tmp, frames, label)
     stats = parse_encode_log(text)
     stats.update(frames=frames, fps=frames / wall, wall_s=wall,
-                 k1_launches=launches, s2_launches=s2)
+                 k1_launches=launches, s2_launches=s2, s3_launches=s3)
     return stats, dec
 
 
@@ -622,7 +766,7 @@ def rd_card_vs_cpu(dev, label, clip, cfg, want_launches=4, qp_map=None,
     y, u, v = clip
     h, w = y.shape[-2:]
     outs, streams, launches = [], [], 0
-    since = s2_launches()
+    since, s3 = s2_launches(), s3_mark()
     for d in (dev, "cpu"):
         satd_fused.LAUNCHES = 0
         outs.append(FrameEncoder(h, w, QP, device=d, search="rd",
@@ -634,6 +778,7 @@ def rd_card_vs_cpu(dev, label, clip, cfg, want_launches=4, qp_map=None,
              f"{want_launches}")
     check_s2(f"{label} card encode", since, h, w,
              2 if options.get("two_pass") else 1)
+    check_s3(f"{label} card encode", s3, launches)
     if streams[0] != streams[1]:
         diff = first_difference(outs[0], outs[1])
         margin = cost_margin(y[:1], u[:1], v[:1], dev,
@@ -714,7 +859,7 @@ def phase_lite(cnn, dev):
     res, launches = {}, 0
     for lite in (True, False):
         satd_fused.LAUNCHES = 0
-        since = s2_launches()
+        since, s3 = s2_launches(), s3_mark()
         t0 = time.perf_counter()
         dev_out = enc.encode_fused_dispatch(cnn, y, u, v, lite=lite)
         dev_out.result()              # the encode, on the worker thread
@@ -729,6 +874,7 @@ def phase_lite(cnn, dev):
             fail(f"lite={lite}: K1 launched {satd_fused.LAUNCHES} times for "
                  f"one batch, not 4")
         check_s2(f"lite={lite}", since, h, w, 1)
+        check_s3(f"lite={lite}", s3, satd_fused.LAUNCHES)
         launches += satd_fused.LAUNCHES
         res[lite] = (out, stream, dict(
             fps=frames / (t3 - t0), collect_ms=(t2 - t1) * 1e3,
@@ -819,7 +965,7 @@ def phase_train_cli(tmp: str, dev):
     src, ckpt = os.path.join(tmp, "in416.yuv"), os.path.join(tmp,
                                                               "trained.npz")
     satd_fused.LAUNCHES = 0
-    since = s2_launches()
+    since, s3 = s2_launches(), s3_mark()
     text, wall = run_cli(["train", "-i", src, "--width", "416", "--height",
                           "240", "-f", str(CLI_FRAMES), "-q", str(QP), "--epochs", "3",
                           "--init", os.path.join(ROOT, "CKPT_DOMAIN.npz"),
@@ -829,6 +975,7 @@ def phase_train_cli(tmp: str, dev):
         fail(f"cli_train: K1 launched {launches} times, not 4")
     # the full-RD labels encode the file in batches of 4 frames
     check_s2("cli_train labels", since, 240, 416, -(-CLI_FRAMES // 4))
+    check_s3("cli_train labels", s3, launches)
     hist = [dict(epoch=int(e), loss=float(lo), acc=float(a)) for e, lo, a
             in re.findall(r"epoch (\d+): loss ([0-9.]+) acc ([0-9.]+)", text)]
     times = re.search(r"Train time: labels ([0-9.]+) s \| dataset ([0-9.]+) "
@@ -849,13 +996,14 @@ def phase_train_cli(tmp: str, dev):
                 fail(f"cli_train: {layer}/{k} is {got.dtype} {got.shape}")
     y, u, v = (p.astype(np.int32) for p in yuv.read_yuv420(src, 416, 240, 1))
     satd_fused.LAUNCHES = 0
-    since = s2_launches()
+    since, s3 = s2_launches(), s3_mark()
     out = FrameEncoder(240, 416, QP, device=dev).encode_fused(
         convnet2.load_model(params, dev), y, u, v)
     if satd_fused.LAUNCHES != 4:
         fail(f"cli_train: the trained model's encode launched K1 "
              f"{satd_fused.LAUNCHES} times, not 4")
     check_s2("cli_train frame 0", since, 240, 416, 1)
+    check_s3("cli_train frame 0", s3, satd_fused.LAUNCHES)
     launches += satd_fused.LAUNCHES
     stream = decoder.encode_stream(
         headers.StreamConfig(width=416, height=240, qp=QP), [out])
@@ -1080,6 +1228,7 @@ def _rank_main(rank, job, init, results):
         from hevctpu_torch.parallel import ShardedEncoder, make_mesh
         from hevctpu_torch.pipeline import clips
         record_k1_shapes()
+        record_s3_calls()
         dist.init_process_group(job["backend"], init_method=init,
                                 rank=rank, world_size=job["world"],
                                 timeout=datetime.timedelta(seconds=300))
@@ -1093,13 +1242,14 @@ def _rank_main(rank, job, init, results):
         sh = ShardedEncoder(h, w, QP, mesh, **src)
         mesh.reset_tally()
         satd_fused.LAUNCHES = 0
-        since = s2_launches()
+        since, s3 = s2_launches(), s3_mark()
         t0 = time.perf_counter()
         out = sh.encode(y, u, v)
         wall = time.perf_counter() - t0
         launches = satd_fused.LAUNCHES
         res = dict(out=out, wall_s=wall, k1_launches=launches,
                    s2_launches=s2_launches() - since,
+                   s3=[now - then for now, then in zip(s3_mark(), s3)],
                    k1_shapes=sorted(K1_LAUNCHED), mesh=mesh.shape,
                    coords=(mesh.frame_index, mesh.tile_index),
                    backend=dist.get_backend(),
@@ -1152,6 +1302,11 @@ def phase_sharded(label, world, backend, job, want, want_stream, cfg,
                  f"{res['s2_launches']} times, not "
                  f"{diagonals(job['h'], job['w'])}")
         S2_LAUNCHED[f"{label} rank {rank}"] = res["s2_launches"]
+        s3, s3_calls = res.pop("s3")
+        if s3 != s3_calls or s3 > S3_PER_DECISION:
+            fail(f"{label} rank {rank}: stage 1's RD kernel launched {s3} "
+                 f"times for {s3_calls} candidate-RD calls on the card")
+        S3_LAUNCHED[f"{label} rank {rank}"] = s3
         if want_tally and res["tally"] != want_tally(res["coords"]):
             fail(f"{label} rank {rank}: tally {res['tally']}, not the "
                  f"closed form {want_tally(res['coords'])}")
@@ -1255,16 +1410,18 @@ def _timed(fn):
 
 def _count_launches(label, fn, want, s2):
     """fn's result with K1's launch count around it, which must be want,
-    and the stage-2 kernel's, which must be one a diagonal of each of the
-    stage-2 runs s2 = (runs, h, w)."""
+    the stage-2 kernel's, which must be one a diagonal of each of the
+    stage-2 runs s2 = (runs, h, w), and stage 1's RD kernel's, one a
+    candidate-RD call on the card under the global rate model."""
     from hevctpu_torch.ops import satd_fused
     satd_fused.LAUNCHES = 0
-    since = s2_launches()
+    since, s3 = s2_launches(), s3_mark()
     out = fn()
     if satd_fused.LAUNCHES != want:
         fail(f"{label}: K1 launched {satd_fused.LAUNCHES} times, not {want}")
     runs, h, w = s2
     check_s2(label, since, h, w, runs)
+    check_s3(label, s3, want)
     return out
 
 
@@ -1629,7 +1786,7 @@ def _fixed_depth_dispatch(h, w, frames, dev):
     g = enc.geom
     labels = np.ones((frames, g.rc * g.cc, 16), np.int8)
     satd_fused.LAUNCHES = 0
-    since = s2_launches()
+    since, s3 = s2_launches(), s3_mark()
     dispatched = enc.encode_dispatch(*clips.clip_sine(frames, h, w, seed=0),
                                      labels)
     out = enc.collect(dispatched)
@@ -1638,6 +1795,7 @@ def _fixed_depth_dispatch(h, w, frames, dev):
         fail(f"{w}x{h} x {frames}: K1 launched {satd_fused.LAUNCHES} times, "
              f"not 4")
     check_s2(f"{w}x{h} x {frames} fixed depth", since, h, w, 1)
+    check_s3(f"{w}x{h} x {frames} fixed depth", s3, satd_fused.LAUNCHES)
     return dispatched, out, satd_fused.LAUNCHES
 
 
@@ -1710,6 +1868,10 @@ def phase_scaling(dev):
                  f"{r['s2_launches']} times, not "
                  f"{diagonals(s['h'], s['w'])}")
         S2_LAUNCHED[f"17b rank {r['rank']}"] = r["s2_launches"]
+        if r["s3_launches"] != S3_PER_DECISION:
+            fail(f"17b rank {r['rank']}: stage 1's RD kernel launched "
+                 f"{r['s3_launches']} times, not {S3_PER_DECISION}")
+        S3_LAUNCHED[f"17b rank {r['rank']}"] = r["s3_launches"]
         launches += r["k1_launches"]
     want_model = _scaling_model_formulas(doc)
     for k, v in want_model.items():
@@ -1766,7 +1928,7 @@ def phase_bench(dev, stream_one):
                                      job["batch"], job["reps"],
                                      job["warmup"])
         satd_fused.LAUNCHES = 0
-        since = s2_launches()
+        since, s3 = s2_launches(), s3_mark()
         fps, rep_fps, run = bench_torch.measure(
             params, job["h"], job["w"], job["frames"], job["batch"],
             job["reps"], device=dev, warmup=job["warmup"])
@@ -1779,6 +1941,7 @@ def phase_bench(dev, stream_one):
                  f"batches), not {want}")
         check_s2(f"18{key}", since, job["h"], job["w"],
                  1 + job["reps"] * batches)
+        check_s3(f"18{key}", s3, satd_fused.LAUNCHES)
         launches += satd_fused.LAUNCHES
         runs[key] = (fps, rep_fps, run)
     fps, rep_fps, run = runs["a"]
@@ -1795,7 +1958,7 @@ def phase_bench(dev, stream_one):
                                hash_type="checksum")
     seq, seq_ms = [], []
     satd_fused.LAUNCHES = 0
-    since = s2_launches()
+    since, s3 = s2_launches(), s3_mark()
     for i in range(0, job["frames"], b):
         t0 = time.perf_counter()
         handle = enc.encode_fused_dispatch(cnn, y[i:i + b], u[i:i + b],
@@ -1810,6 +1973,7 @@ def phase_bench(dev, stream_one):
         fail(f"18b: the batches alone launched K1 {satd_fused.LAUNCHES} "
              f"times, not {4 * len(seq)}")
     check_s2("18b batches alone", since, h, w, len(seq))
+    check_s3("18b batches alone", s3, satd_fused.LAUNCHES)
     launches += satd_fused.LAUNCHES
     _, rep_fps2, run2 = runs["b"]
     if run2["streams"] != seq:
@@ -1936,6 +2100,12 @@ def main() -> int:
         f"--fmad=false); ptxas -v:")
     for line in ptxas.splitlines():
         log(f"    {line.strip()}")
+    from hevctpu_torch.ops import stage1_rd
+    s3_build_s, ptxas = stage1_rd.build()
+    log(f"  stage 1's RD kernel built in {s3_build_s:.2f} s (nvcc, sm_90a, "
+        f"--fmad=false); ptxas -v:")
+    for line in ptxas.splitlines():
+        log(f"    {line.strip()}")
     sm_hz = sm_clock_hz()
     log(f"  max SM clock {sm_hz / 1e6:.0f} MHz: {INT32_LANES * sm_hz:.4g} "
         f"INT32 instructions/s")
@@ -1946,6 +2116,11 @@ def main() -> int:
     k1 = phase_k1(rng, dev, sm_hz)
     phase_predict_oracle(rng, dev)
     record_k1_shapes()
+
+    log_phase("phase 2b: stage 1's RD kernel against its plain version on "
+              "the card (416x240 x 32, 1088x1920 x 8; bit-identical)")
+    s3 = phase_stage1_rd(dev, sm_hz)
+    record_s3_calls()
 
     log_phase("phase 3: ConvNet2 labels, card vs CPU (416x240)")
     from hevctpu_torch.models import convnet2
@@ -2144,7 +2319,16 @@ def main() -> int:
                               for k, r in stage2.items()},
                     bound_ms={k: r["bound_ms"] for k, r in stage2.items()},
                     bound_by={k: r["bound_by"] for k, r in stage2.items()},
-                    library_ms=None)]
+                    library_ms=None),
+               dict(name="stage1_rd", route="cuda",
+                    source="hevctpu_torch/csrc/stage1_rd.cu",
+                    replaces=None, build_s=s3_build_s,
+                    launches=sum(S3_LAUNCHED.values()),
+                    launches_by_path=S3_LAUNCHED,
+                    ms={k: r["ms"] for k, r in s3.items()},
+                    plain_ms={k: r["plain_ms"] for k, r in s3.items()},
+                    bound_ms={k: r["bound_ms"] for k, r in s3.items()},
+                    bound_by="int32", library_ms=None)]
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"paths": {"416x240": sd, "1920x1080": hd,
                                 f"cli_rd_416x240x{CLI_FRAMES}": cli_rd,

@@ -51,7 +51,9 @@
 // (transform matrices, scans, rate weights and last-position bits,
 // angular tables, filter flags, quantiser scales, the schedule and its
 // decoded-before masks) comes from the Python functions the plain
-// version uses (ops/stage2_ctu.py, tables_np).
+// version uses (ops/stage2_ctu.py, tables_np). The per-TU pieces it
+// shares with stage 1's RD kernel (references, prediction, the forward
+// transform, the rate estimate, the warp reductions) are in intra_tu.cuh.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a --fmad=false -O3
 //        -shared -Xcompiler -fPIC (driven by hevctpu_torch/ops/stage2_ctu.py).
@@ -60,16 +62,13 @@
 
 #include <cuda_runtime.h>
 
+#include "intra_tu.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxNN = 1024;          // 32x32 coefficients
 constexpr int kExtY = 97 * 130;       // luma extended buffer
 constexpr int kStepWords = 8;         // words of one schedule entry
-
-// Weight fields of ops/rate.py (_W_FIELDS order).
-enum { kSig0, kSig1, kGt1_0, kGt1_1, kGt2_0, kGt2_1, kCsbf, kLast, kCbf1,
-       kCbf0 };
 
 }  // namespace
 
@@ -147,79 +146,6 @@ struct Stage2Args {
 namespace {
 
 // ---------------------------------------------------------------------------
-// Warp helpers: reductions over aligned segments of `width` lanes (16 or
-// 32); every lane of the warp calls them.
-// ---------------------------------------------------------------------------
-
-template <typename T>
-__device__ __forceinline__ T seg_sum(T v, int width) {
-  for (int o = width >> 1; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-__device__ __forceinline__ int seg_max(int v, int width) {
-  for (int o = width >> 1; o > 0; o >>= 1)
-    v = max(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-__device__ __forceinline__ int seg_min(int v, int width) {
-  for (int o = width >> 1; o > 0; o >>= 1)
-    v = min(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-// (value, index) minimum, ties to the lower index (torch's argmin).
-__device__ __forceinline__ void seg_argmin(float& v, int& i, int width) {
-  for (int o = width >> 1; o > 0; o >>= 1) {
-    float ov = __shfl_xor_sync(kFull, v, o);
-    int oi = __shfl_xor_sync(kFull, i, o);
-    if (ov < v || (ov == v && oi < i)) {
-      v = ov;
-      i = oi;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Integer pieces (ops/rate.py, ops/quant.py)
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ int bit_length(int x) {
-  return x > 0 ? 32 - __clz(x) : 0;
-}
-
-__device__ __forceinline__ int rice_param(int cg_sum) {
-  return min(max(bit_length(cg_sum + 8) - 4, 0), 4);
-}
-
-__device__ __forceinline__ int golomb_rice_bits(int v, int k) {
-  if ((v >> k) < 3) return (v >> k) + 1 + k;
-  int u = max(v - (3 << k), 0);
-  int big = max(u + (1 << k), 1);
-  return 4 + 2 * (bit_length(big) - 1) - k;
-}
-
-__device__ __forceinline__ int level_bits(int a, int k, const int* w) {
-  int b = a > 0 ? w[kSig1] : w[kSig0];
-  b += a > 1 ? w[kGt1_1] : (a == 1 ? w[kGt1_0] : 0);
-  b += a > 2 ? w[kGt2_1] : (a == 2 ? w[kGt2_0] : 0);
-  if (a > 2) b += golomb_rice_bits(a - 3, k) * 256;
-  if (a > 0) b += 256;
-  return b;
-}
-
-// The normative dequantisation (H.265 8.6.3, flat scaling m = 16).
-__device__ __forceinline__ int dequant(int level, int log2, int qp,
-                                       const int* inv_scale) {
-  int sc = inv_scale[qp % 6] * 16;
-  int e = qp / 6 - (8 + log2 - 5);
-  int d = e < 0 ? (level * sc + (1 << (-e - 1))) >> (-e)
-                : (level * sc) * (1 << e);
-  return min(max(d, -32768), 32767);
-}
-
-// ---------------------------------------------------------------------------
 // Shared memory of a block
 // ---------------------------------------------------------------------------
 
@@ -258,8 +184,6 @@ struct Plane {
   const int* weights;
 };
 
-__device__ __forceinline__ float inf() { return __int_as_float(0x7f800000); }
-
 // ---------------------------------------------------------------------------
 // Prediction (ops/intra.py: fill_reference, smooth_reference,
 // predict_one_mode), into s.pred.
@@ -268,142 +192,28 @@ __device__ __forceinline__ float inf() { return __int_as_float(0x7f800000); }
 __device__ void predict(Smem& s, const Stage2Tables& T, const Plane& P,
                         int n, int log2, int oy, int ox, int mode,
                         const int* av, bool luma, int lane) {
-  const int L = 4 * n + 1;
   const int n2 = 2 * n;
-  // boundary samples and their availability; the sample each takes is
-  // the last available one at or before it in scan order
-  int carry = -1, first = -1;
-  for (int base = 0; base < L; base += 32) {
-    int i = base + lane;
-    bool a = false;
-    if (i < L) {
-      int dy = i < n2 ? n2 - 1 - i : -1;
-      int dx = i < n2 ? -1 : i - n2 - 1;
-      s.bnd[i] = P.ext[(oy + 1 + dy) * P.stride + ox + 1 + dx];
-      int fy = P.cy + oy + dy, fx = P.cx + ox + dx;
-      a = av[i] != 0 && fy >= 0 && fx >= 0 && fy < P.h && fx < P.w;
-    }
-    unsigned m = __ballot_sync(kFull, a);
-    unsigned below = m & ((2u << lane) - 1u);
-    if (i < L) s.fidx[i] = below ? base + 31 - __clz(below) : carry;
-    if (m) {
-      if (first < 0) first = base + __ffs(m) - 1;
-      carry = base + 31 - __clz(m);
-    }
-  }
-  __syncwarp();
-  for (int i = lane; i < L; i += 32) {
-    int j = s.fidx[i] < 0 ? first : s.fidx[i];
-    s.fill[i] = first < 0 ? 128 : s.bnd[j];
-  }
-  __syncwarp();
-  // top_e[k] = fill[2n + k], left_e[k] = fill[2n - k], k in [0, 2n]
+  // boundary samples from the extended buffer; available where decoded
+  // before (av) and inside the picture
+  reference(s.bnd, s.fidx, s.fill, n, [&](int i, int& v) {
+    int dy = i < n2 ? n2 - 1 - i : -1;
+    int dx = i < n2 ? -1 : i - n2 - 1;
+    v = P.ext[(oy + 1 + dy) * P.stride + ox + 1 + dx];
+    int fy = P.cy + oy + dy, fx = P.cx + ox + dx;
+    return av[i] != 0 && fy >= 0 && fx >= 0 && fy < P.h && fx < P.w;
+  }, lane);
   const bool use_f = luma && T.filter[log2 - 2][mode] != 0;
-  if (use_f) {
-    bool strong = false;
-    if (n == 32) {
-      int c = s.fill[n2];
-      strong = abs(c + s.fill[2 * n2] - 2 * s.fill[n2 + n]) < 8 &&
-               abs(c + s.fill[0] - 2 * s.fill[n2 - n]) < 8;
-    }
-    for (int i = lane; i < L; i += 32) {
-      int v;
-      if (i == 0 || i == L - 1) {
-        v = s.fill[i];
-      } else if (strong) {
-        int k = i > n2 ? i - n2 : n2 - i;
-        int end = i > n2 ? s.fill[L - 1] : s.fill[0];
-        v = ((64 - k) * s.fill[n2] + k * end + 32) >> 6;
-      } else {
-        v = (s.fill[i - 1] + 2 * s.fill[i] + s.fill[i + 1] + 2) >> 2;
-      }
-      s.filt[i] = v;
-    }
-    __syncwarp();
-  }
-  const int* ref = use_f ? s.filt : s.fill;
-  const int* fl = s.fill;
-  const int nn = n * n;
-  const bool edges = luma && n < 32;
-  if (mode == 0) {                                   // planar
-    for (int e = lane; e < nn; e += 32) {
-      int y = e >> log2, x = e & (n - 1);
-      s.pred[e] = ((n - 1 - x) * ref[n2 - 1 - y] + (x + 1) * ref[n2 + n + 1] +
-                   (n - 1 - y) * ref[n2 + 1 + x] + (y + 1) * ref[n2 - n - 1] +
-                   n) >> (log2 + 1);
-    }
-  } else if (mode == 1) {                            // DC
-    int part = 0;
-    for (int k = 1 + lane; k <= n; k += 32) part += fl[n2 + k] + fl[n2 - k];
-    int dc = (seg_sum(part, 32) + n) >> (log2 + 1);
-    for (int e = lane; e < nn; e += 32) {
-      int y = e >> log2, x = e & (n - 1);
-      int v = dc;
-      if (edges) {
-        if (y == 0 && x == 0)
-          v = (fl[n2 - 1] + 2 * dc + fl[n2 + 1] + 2) >> 2;
-        else if (y == 0)
-          v = (fl[n2 + 1 + x] + 3 * dc + 2) >> 2;
-        else if (x == 0)
-          v = (fl[n2 - 1 - y] + 3 * dc + 2) >> 2;
-      }
-      s.pred[e] = v;
-    }
-  } else {                                           // angular
-    const int mi = mode - 2;
-    const int ln = 3 * n + 2;
-    const int* src = T.ang_src[log2 - 2] + mi * ln;
-    const int* idx = T.ang_idx[log2 - 2] + mi * ln;
-    const int* didx = T.ang_didx[log2 - 2] + mi * n;
-    const int* fact = T.ang_fact[log2 - 2] + mi * n;
-    const bool vertical = mode >= 18;
-    const bool edge_mode = edges && (mode == 10 || mode == 26);
-    for (int e = lane; e < nn; e += 32) {
-      int y = e >> log2, x = e & (n - 1);
-      int r = vertical ? y : x, c = vertical ? x : y;
-      int v;
-      if (edge_mode && c == 0) {
-        // VER: top_e[1] + (left_e[1+r] - corner) >> 1; HOR transposed
-        int main1 = vertical ? fl[n2 + 1] : fl[n2 - 1];
-        int side = vertical ? fl[n2 - 1 - r] : fl[n2 + 1 + r];
-        v = min(max(main1 + ((side - fl[n2]) >> 1), 0), 255);
-      } else {
-        int g = min(c + didx[r] + 1 + n, 3 * n + 1);
-        int g1 = min(g + 1, 3 * n + 1);
-        int a = src[g] == 0 ? ref[n2 + idx[g]] : ref[n2 - idx[g]];
-        int b = src[g1] == 0 ? ref[n2 + idx[g1]] : ref[n2 - idx[g1]];
-        int f = fact[r];
-        v = ((32 - f) * a + f * b + 16) >> 5;
-      }
-      s.pred[e] = v;
-    }
-  }
+  if (use_f) smooth(s.fill, s.filt, n, lane);
+  const int dc = mode == 1 ? dc_value(s.fill, n, log2, lane) : 0;
+  predict_mode(s.pred, use_f ? s.filt : s.fill, s.fill, dc, n, log2, mode,
+               luma && n < 32, T.ang_src[log2 - 2], T.ang_idx[log2 - 2],
+               T.ang_didx[log2 - 2], T.ang_fact[log2 - 2], lane, 32);
   __syncwarp();
 }
 
 // ---------------------------------------------------------------------------
-// Transforms (ops/transforms.py), n x n int32 in shared memory
+// The inverse transform (ops/transforms.py), n x n int32 in shared memory
 // ---------------------------------------------------------------------------
-
-// coef[k2][k] = rs(sum_y M[k2][y] rs(sum_x M[k][x] res[y][x], s1), s2)
-__device__ void forward(const int* res, int* tmp, int* coef, const int* m,
-                        int n, int log2, int lane) {
-  const int nn = n * n, s1 = log2 - 1, s2 = log2 + 6;
-  for (int e = lane; e < nn; e += 32) {
-    int k = e >> log2, y = e & (n - 1);
-    int acc = 0;
-    for (int x = 0; x < n; ++x) acc += __ldg(m + k * n + x) * res[y * n + x];
-    tmp[e] = (acc + (1 << (s1 - 1))) >> s1;         // tmp[k][y]
-  }
-  __syncwarp();
-  for (int e = lane; e < nn; e += 32) {
-    int k2 = e >> log2, k = e & (n - 1);
-    int acc = 0;
-    for (int y = 0; y < n; ++y) acc += __ldg(m + k2 * n + y) * tmp[k * n + y];
-    coef[e] = (acc + (1 << (s2 - 1))) >> s2;
-  }
-  __syncwarp();
-}
 
 // out[y][x] = rs(sum_j M[j][x] clip16(rs(sum_k M[k][y] deq[k][j], 7)), 12)
 __device__ void inverse(const int* deq, int* tmp, int* out, const int* m,
@@ -425,49 +235,15 @@ __device__ void inverse(const int* deq, int* tmp, int* out, const int* m,
   __syncwarp();
 }
 
-// ---------------------------------------------------------------------------
-// rate.estimate_tu_bits for `c` TUs of n x n (|levels| in arr, TU-major):
-// every lane returns the bits of the TU of its segment.
-// ---------------------------------------------------------------------------
-
-__device__ int tu_bits(Smem& s, const Stage2Tables& T, const Plane& P,
-                       const int* arr, int c, int n, int log2, int lane) {
-  const int nn = n * n, tot = c * nn, seg = nn >= 32 ? 32 : 16;
-  const int nc = n >> 2, cpc = nc * nc;
-  const int* w = P.weights;
-  const int* dpos = T.diag_pos[log2 - 2];
-  for (int g = lane; g < c * cpc; g += 32) {
-    const int* base = arr + (g / cpc) * nn;
-    int gy = (g % cpc) / nc * 4, gx = (g % cpc) % nc * 4, sum = 0;
-    for (int r = 0; r < 16; ++r)
-      sum += abs(base[(gy + (r >> 2)) * n + gx + (r & 3)]);
-    s.cg[g] = sum;
-  }
-  int last = -1;
-  for (int e = lane; e < tot; e += 32)
-    if (arr[e] != 0) last = max(last, dpos[e & (nn - 1)]);
-  last = seg_max(last, seg);
-  __syncwarp();
-  int last_cg = -1;
-  if (n > 4) {                                       // c == 1
-    for (int g = lane; g < cpc; g += 32)
-      if (s.cg[g] > 0) last_cg = max(last_cg, T.cg_pos[log2 - 2][g]);
-    last_cg = seg_max(last_cg, 32);
-  }
-  int bits = 0;
-  for (int e = lane; e < tot; e += 32) {
-    int f = e & (nn - 1), y = f >> log2, x = f & (n - 1);
-    int cs = s.cg[(e >> (2 * log2)) * cpc + (y >> 2) * nc + (x >> 2)];
-    if ((n == 4 || cs > 0) && dpos[f] <= last)
-      bits += level_bits(abs(arr[e]), rice_param(cs), w);
-  }
-  bits = seg_sum(bits, seg);
-  __syncwarp();                                      // s.cg is reused
-  if (last < 0) return w[kCbf0];
-  int lf = T.diag_idx[log2 - 2][last];
-  const int* lb = T.last_bits[P.pl][log2 - 2];
-  int csbf = n > 4 ? max(last_cg - 1, 0) * w[kCsbf] : 0;
-  return w[kCbf1] + lb[lf >> log2] + lb[lf & (n - 1)] + csbf + bits;
+// rate.estimate_tu_bits for `c` TUs of n x n (|levels| in arr, TU-major)
+// at the plane's rate QP: every lane returns the bits of the TU of its
+// segment.
+__device__ __forceinline__ int tu_bits(Smem& s, const Stage2Tables& T,
+                                       const Plane& P, const int* arr, int c,
+                                       int n, int log2, int lane) {
+  return estimate_tu_bits(s.cg, arr, c, n, log2, P.weights,
+                          T.last_bits[P.pl][log2 - 2], T.diag_pos[log2 - 2],
+                          T.diag_idx[log2 - 2], T.cg_pos[log2 - 2], lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -483,8 +259,7 @@ __device__ void quantize(Smem& s, const Stage2Tables& T, const Plane& P,
   const int qbits = 14 + qp / 6 + (15 - 8 - log2);
   if (!P.rdoq) {
     for (int e = lane; e < tot; e += 32) {
-      int a = abs(s.cf[e]);
-      int l = min((a * qs + (171 << (qbits - 9))) >> qbits, 32767);
+      int l = hard_level(abs(s.cf[e]), qs, qbits);
       s.lv[e] = s.cf[e] < 0 ? -l : l;
     }
     __syncwarp();
@@ -605,7 +380,7 @@ __device__ void quantize(Smem& s, const Stage2Tables& T, const Plane& P,
     if (zero || spos[e & (nn - 1)] > qbest) s.lv[e] = 0;
   // arbitration against the hard decision, with the full TU estimate
   for (int e = lane; e < tot; e += 32)
-    hdq[e] = min((abs(s.cf[e]) * qs + (171 << (qbits - 9))) >> qbits, 32767);
+    hdq[e] = hard_level(abs(s.cf[e]), qs, qbits);
   __syncwarp();
   int br = tu_bits(s, T, P, s.lv, c, n, log2, lane);
   int bh = tu_bits(s, T, P, hdq, c, n, log2, lane);
@@ -696,7 +471,7 @@ __device__ void code_tu(Smem& s, const Stage2Tables& T, const Plane& P,
     res[e] = P.orig[(oy + (e >> log2)) * P.span + ox + (e & (n - 1))] -
              s.pred[e];
   __syncwarp();
-  forward(res, tmp, s.cf, m, n, log2, lane);
+  forward(res, tmp, s.cf, m, n, log2, 1, n, lane);
   const bool ts = try_ts && n == 4 && P.ts;
   const int c = ts ? 2 : 1;
   if (ts)                            // the scaled residual, candidate 2

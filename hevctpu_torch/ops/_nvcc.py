@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -15,6 +16,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
+
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 
 
 def nvcc() -> str:
@@ -27,11 +30,25 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def sources(source: Path) -> list[Path]:
+    """`source` and every file it includes in quotes, found beside the file
+    that includes it, and theirs in turn."""
+    found = [source.resolve()]
+    for path in found:
+        for name in _INCLUDE.findall(path.read_bytes()):
+            inc = (path.parent / name.decode()).resolve()
+            if inc.exists() and inc not in found:
+                found.append(inc)
+    return found
+
+
 def library_path(source: Path, flags) -> Path:
     """The library of `source` built with `flags`: its name is keyed on
-    both, so an edited source never loads a stale build."""
+    both and on the headers the source includes, so an edited source or
+    header never loads a stale build."""
     h = hashlib.sha256(" ".join(flags).encode())
-    h.update(source.read_bytes())
+    for path in sources(source):
+        h.update(path.read_bytes())
     return BUILD_DIR / f"{source.stem}_{h.hexdigest()[:16]}.so"
 
 

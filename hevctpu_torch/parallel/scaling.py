@@ -99,16 +99,18 @@ def rank_main(rank: int, job: dict, init: str, results):
                             device=None if dev == "cuda" else dev)
         mesh.reset_tally()
         satd_fused.LAUNCHES = 0
-        s2 = trace.counters()["stage2.kernel_launches"]
+        before = trace.counters()
         t0 = time.perf_counter()
         out = sh.encode(y, u, v)
         wall = time.perf_counter() - t0
-        s2 = trace.counters()["stage2.kernel_launches"] - s2
+        after = trace.counters()
+        s2, s3 = (after[k] - before[k] for k in (
+            "stage2.kernel_launches", "stage1.rd_kernel_launches"))
         res = dict(coords=[mesh.frame_index, mesh.tile_index],
                    tally=mesh.tally, wall_s=wall,
                    stage_ms=sh.enc.stage_ms(),
                    k1_launches=satd_fused.LAUNCHES, s2_launches=s2,
-                   device=str(sh.enc.device),
+                   s3_launches=s3, device=str(sh.enc.device),
                    checksums=out["hash_checksum"].tolist())
         dist.destroy_process_group()
         results.put((rank, res))

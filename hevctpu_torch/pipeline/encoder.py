@@ -3,8 +3,10 @@ reconstruction (port of hevctpu/pipeline/encoder.py, main path).
 
   Stage 1 (dense "search"): for every CU/PU position at every depth, all
   35 modes are scored by SATD (K1, ops/satd_fused.py), the top candidates
-  plus the MPMs are RD-evaluated, and the TU tree, NxN and chroma
-  decisions follow, all as batched tensor ops over the frame.
+  plus the MPMs are RD-evaluated (on the card under the global rate
+  model, one launch of stage 1's RD kernel a size, ops/stage1_rd.py), and
+  the TU tree, NxN and chroma decisions follow, all as batched tensor ops
+  over the frame.
 
   Stage 2 (wavefront reconstruction): with the partition fixed by the CNN
   labels and the modes by stage 1, CTUs are reconstructed in wavefront
@@ -63,8 +65,8 @@ import torch.nn.functional as F
 
 from hevctpu_torch import device_table, get_device, rom
 from hevctpu_torch.ops import (ctu, deblock, intra, intra_mm, quant, rate,
-                               rate_ctx, rd, sao, satd_fused, stage2_ctu,
-                               transforms)
+                               rate_ctx, rd, sao, satd_fused, stage1_rd,
+                               stage2_ctu, transforms)
 from hevctpu_torch.ops.quant import seqsum
 from hevctpu_torch.pipeline import trace
 
@@ -271,11 +273,32 @@ def _dense_rd_candidates(plane: torch.Tensor, geom: Geometry, n: int,
                          rate_model: str = "ctx",
                          cbf_ctx: int | None = None) -> torch.Tensor:
     """Full-RD cost [B, R, C, K] float32 of the candidate modes cand
-    [B, R, C, K] at every aligned n x n position: predict all 35 (one
-    matmul), gather the K candidates, transform + quant + rate for those
-    (residual RD only; mode-signaling bits are the caller's). Boundaries
-    come from bsrc (default: plane), blocks from plane; rate_model and
-    cbf_ctx go to rd.mode_rd_costs."""
+    [B, R, C, K] at every aligned n x n position (residual RD only;
+    mode-signaling bits are the caller's). Boundaries come from bsrc
+    (default: plane), blocks from plane. On the card under "global" the
+    whole call is one launch of stage 1's RD kernel (ops/stage1_rd.py);
+    elsewhere, and under "ctx", its plain version _dense_rd_plain."""
+    if rate_model == "global" and plane.device.type == "cuda":
+        return stage1_rd.rd_costs(
+            plane.to(torch.int32).contiguous(),
+            (plane if bsrc is None else bsrc).to(torch.int32).contiguous(),
+            _grid_avail_t(geom, n, scale, plane.device),
+            cand.to(torch.int32).contiguous(), n, qp, lam, is_luma=is_luma)
+    return _dense_rd_plain(plane, geom, n, cand, qp, lam, is_luma=is_luma,
+                           scale=scale, bsrc=bsrc, rate_model=rate_model,
+                           cbf_ctx=cbf_ctx)
+
+
+def _dense_rd_plain(plane: torch.Tensor, geom: Geometry, n: int,
+                    cand: torch.Tensor, qp: int, lam: float, *,
+                    is_luma: bool = True, scale: int = 1,
+                    bsrc: torch.Tensor | None = None,
+                    rate_model: str = "ctx",
+                    cbf_ctx: int | None = None) -> torch.Tensor:
+    """_dense_rd_candidates in aten ops, on any device: predict all 35
+    (one matmul), gather the K candidates, transform + quant + rate for
+    those (rate_model and cbf_ctx go to rd.mode_rd_costs), in row chunks
+    of at most _CHUNK_BYTES of intermediates."""
     b, hp, wp = plane.shape
     r_n, c_n = hp // n, wp // n
     kc = cand.shape[-1]

@@ -36,7 +36,10 @@ start and at its end and how far the process peak rose during it.
 counters() is a snapshot of the process's counts since import: stage 2's
 captures, capture ms, graph nodes, graph replays, graph-cache evictions
 (each one a capture again later) and kernel launches (one a diagonal on
-the card), the native CABAC coder's calls and host ms, and on the card:
+the card), stage 1's candidate-RD kernel launches (one a call of
+encoder._dense_rd_candidates on the card under rate_model="global", 25
+an encode call), the native CABAC coder's calls and host ms, and on the
+card:
 
   mem.rise_bytes.<stage>  the process peak's rises during that stage,
                           summed over dispatches
@@ -66,6 +69,7 @@ STAGES = ("cnn", "stage1", "pass1_stage2", "pass2_stage1", "stage2",
 _COUNTS = {"stage2.captures": 0, "stage2.capture_ms": 0.0,
            "stage2.graph_nodes": 0, "stage2.replays": 0,
            "stage2.evictions": 0, "stage2.kernel_launches": 0,
+           "stage1.rd_kernel_launches": 0,
            "cabac.calls": 0, "cabac.ms": 0.0,
            **{f"mem.rise_bytes.{s}": 0 for s in STAGES},
            "mem.working_bytes": 0}

@@ -1,5 +1,6 @@
 // A CUDA kernel written for blocks of one warp, built for the host with
-// g++ and run on the CPU, for tests (tests/test_torch_stage2_kernel.py):
+// g++ and run on the CPU, for tests (tests/test_torch_stage2_kernel.py,
+// tests/test_torch_stage1_kernel.py):
 // the block's 32 lanes are fibers (ucontext) in one thread, and each
 // warp primitive switches to the next lane, so a primitive that every
 // lane calls in the same order is a barrier. __shared__ variables become
@@ -16,10 +17,11 @@
 #include <vector>
 
 #define __global__
+#define __host__
 #define __device__
 #define __forceinline__ inline
 #define __shared__ static
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 using std::max;
 using std::min;
 

@@ -171,6 +171,7 @@ def test_tool_tally_is_the_pixels_free_closed_form(tool_run, tile4_world):
         assert r["coords"] == [0, r["rank"]]
         assert r["k1_launches"] == 0         # the CPU runs K1's plain form
         assert r["s2_launches"] == 0         # and stage 2's planned form
+        assert r["s3_launches"] == 0         # and stage 1's plain RD
 
 
 def test_tool_report_keys_and_model(tool_run):
